@@ -12,10 +12,11 @@ Phases, each of which fails the run loudly:
   3. generate the smoke graph ``powerlaw_bipartite(200_000, 150_000,
      2_000_000, seed=7)`` and check it against the pinned reference
      ``tests/data/torch_smoke_reference.json`` (m, content hash, wedges);
-  4. hold every kernel against its plain PyTorch version on the card, at
-     the shapes the counting path gives it, bit for bit, and time both
-     (and ``torch.bincount`` beside the histogram, as a yardstick only);
-  5. drive the main path, ``count_butterflies(g, mode="all",
+  4. hold every counting kernel against its plain PyTorch version on the
+     card, at the shapes the counting path gives it, bit for bit, and
+     time both (and ``torch.bincount`` beside the histogram, as a
+     yardstick only);
+  5. drive the counting path, ``count_butterflies(g, mode="all",
      order="degree", count_dtype=torch.int64)``, through ``fused_cuda``,
      ``cuda`` with hash aggregation, and the plain ``fused`` engine, with
      the kernels' launch counts zeroed just before each run and read just
@@ -24,7 +25,26 @@ Phases, each of which fails the run loudly:
   6. profile one more ``fused_cuda`` call (``torch.profiler``) and print
      the device's busy time (kernels and copies) and its idle share of the
      unprofiled ``fused_cuda`` wall of phase 5, with the top device rows;
-  7. print one ``{"kernels": [...]}`` line, the card line, and the final
+  7. drive the peeling path, each call with the launch counts zeroed just
+     before it and read just after: ``peel_tips(engine="device")`` on
+     ``PEEL_TIPS`` = ``powerlaw_bipartite(60_000, 45_000, 600_000,
+     seed=7)`` with ``decrease_key="bucket"`` in exact and in range mode
+     and with ``"scatter"``; ``peel_wings(engine="device")`` with
+     ``bucket`` and ``scatter`` on ``PEEL_WINGS`` =
+     ``powerlaw_bipartite(20_000, 15_000, 200_000, seed=7)``; and
+     ``peel_wings(engine="host")`` on ``PEEL_WINGS_HOST`` =
+     ``powerlaw_bipartite(5_000, 4_000, 40_000, seed=7)``. Each call
+     computes its own counts through ``fused_cuda``, must finish on the
+     rung it asked for and launch its kernel; it prints its wall, host
+     syncs and peak memory. All tip numbers must agree bit for bit, all
+     wing numbers likewise, and both must match the pinned JAX reference
+     ``tests/data/torch_peel_reference.json``;
+  8. hold ``bucket_min`` and ``bucket_update`` against their plain
+     versions on inputs the peeling path gave them (copies kept during
+     phase 7), time both and the ``torch.amin`` yardstick, and profile
+     one more tip call to set the device's busy time beside its wall
+     and host syncs;
+  9. print one ``{"kernels": [...]}`` line, the card line, and the final
      ``{"ok": true, "device": {...}}`` line.
 
 Bounds use the H100 SXM's published rates: 3.35 TB/s of HBM bandwidth,
@@ -45,6 +65,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 REFERENCE = os.path.join(ROOT, "tests", "data", "torch_smoke_reference.json")
+PEEL_REFERENCE = os.path.join(ROOT, "tests", "data",
+                              "torch_peel_reference.json")
 GRAPH = dict(n_u=200_000, n_v=150_000, m=2_000_000, seed=7)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
@@ -55,12 +77,41 @@ KERNEL_SOURCES = {
                         "src/repro/kernels/wedge_count.py:64"),
     "butterfly_combine": ("src/repro_torch/kernels/csrc/butterfly_combine.cu",
                           "src/repro/kernels/butterfly_combine.py:87"),
+    "bucket_min": ("src/repro_torch/kernels/csrc/bucket_min.cu",
+                   "src/repro/kernels/bucket_min.py:46"),
+    "bucket_update": ("src/repro_torch/kernels/csrc/bucket_update.cu",
+                      "src/repro/kernels/bucket_update.py:140"),
 }
 MAIN_PATH = (
     ("fused_cuda", "sort"),
     ("cuda", "hash"),
     ("fused", "sort"),
 )
+# (decomposition, graph, knobs, the kernel the call must launch)
+PEEL_PATH = (
+    ("tips", "PEEL_TIPS",
+     dict(engine="device", decrease_key="bucket", peel_mode="exact"),
+     "bucket_update"),
+    ("tips", "PEEL_TIPS",
+     dict(engine="device", decrease_key="bucket", peel_mode="range"),
+     "bucket_update"),
+    ("tips", "PEEL_TIPS",
+     dict(engine="device", decrease_key="scatter", peel_mode="exact"),
+     "bucket_min"),
+    ("wings", "PEEL_WINGS", dict(engine="device", decrease_key="bucket"),
+     "bucket_update"),
+    ("wings", "PEEL_WINGS", dict(engine="device", decrease_key="scatter"),
+     "bucket_min"),
+    ("wings", "PEEL_WINGS_HOST", dict(engine="host"), "bucket_min"),
+)
+TAPPED = ("bucket_min", "bucket_update")
+
+
+T0 = time.perf_counter()
+
+
+def phase(n: int) -> None:
+    print(f"-- phase {n} at {time.perf_counter() - T0:.1f} s", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -256,6 +307,242 @@ def profile_call(g, dev, wall_s: float) -> None:
         print(f"  {ms:10.3f} ms  {key[:90]}", flush=True)
 
 
+class KernelTap:
+    """Wraps ``ops.bucket_min`` and ``ops.bucket_update`` while the
+    peeling path runs: records the batch size of every call and keeps
+    copies of a few calls' inputs (the largest batch so far and every
+    ``every``-th call) for phase 8. The wrapped functions still launch
+    and count as before."""
+
+    def __init__(self, ops, every: int = 1000):
+        self.ops = ops
+        self.every = every
+        self.calls = {name: 0 for name in TAPPED}
+        self.sizes = {name: [] for name in TAPPED}
+        self.samples = {name: [] for name in TAPPED}
+        self.largest = {name: -1 for name in TAPPED}
+        self.orig = {}
+
+    def __enter__(self):
+        for name in TAPPED:
+            orig = getattr(self.ops, name)
+            self.orig[name] = orig
+
+            def tapped(*args, _name=name, _orig=orig):
+                self._record(_name, args)
+                return _orig(*args)
+
+            setattr(self.ops, name, tapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self.orig.items():
+            setattr(self.ops, name, orig)
+
+    def _record(self, name, args):
+        k = int(args[2].numel()) if name == "bucket_update" else 0
+        if k > self.largest[name] or self.calls[name] % self.every == 0:
+            self.samples[name].append(tuple(a.clone() for a in args))
+        self.largest[name] = max(self.largest[name], k)
+        self.sizes[name].append(k)
+        self.calls[name] += 1
+
+
+def peel_phase(dev, launches):
+    """Phase 7: the peeling path. Returns the kernel tap and the
+    PEEL_TIPS graph."""
+    from repro_torch.core import peel_tips, peel_wings
+    from repro_torch.data.graphs import powerlaw_bipartite
+    from repro_torch.kernels import ops
+
+    with open(PEEL_REFERENCE) as f:
+        ref = json.load(f)
+    graphs = {}
+    for name in ("PEEL_TIPS", "PEEL_WINGS", "PEEL_WINGS_HOST"):
+        spec = ref[name]["generator"]
+        g = powerlaw_bipartite(spec["n_u"], spec["n_v"], spec["m"],
+                               seed=spec["seed"])
+        for key, val in (("m", g.m), ("content_hash", g.content_hash())):
+            if ref[name][key] != val:
+                fail(f"{name} {key} {val} differs from the pinned "
+                     f"{ref[name][key]}")
+        graphs[name] = g
+        print(f"peel graph {name}: {ref[name]['graph']} m={g.m} "
+              f"content_hash matches the pin", flush=True)
+
+    results = []
+    with KernelTap(ops) as tap:
+        for kind, gname, knobs, kernel in PEEL_PATH:
+            fn = peel_tips if kind == "tips" else peel_wings
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            r = fn(graphs[gname], count_kwargs={"engine": "fused_cuda"},
+                   device=dev, **knobs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            used = dict(ops.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            rep = r.report
+            label = f"{kind} {gname} " + " ".join(
+                f"{k}={v}" for k, v in knobs.items())
+            print(f"peel {label}: wall {wall:.3f} s, host syncs "
+                  f"{rep.host_syncs}, peak {peak:.3f} GiB, rounds "
+                  f"{r.rounds}, sub_rounds {r.sub_rounds}, launches "
+                  f"{used}, rungs {rep.summary().split(' | ')[0]}",
+                  flush=True)
+            if rep.final_rung != knobs["engine"] or rep.degraded:
+                fail(f"peel {label} did not finish on its own rung: "
+                     f"{rep.summary()}")
+            if used[kernel] == 0:
+                fail(f"peel {label} ran without launching {kernel}")
+            for name, n in used.items():
+                launches[name] += n
+            results.append((kind, gname, knobs, r))
+
+    for kind, gname, knobs, r in results:
+        want = ref[gname][knobs.get("peel_mode", "exact")]
+        if r.numbers.dtype != np.int64 or digest(r.numbers) != want["sha256_int64"]:
+            fail(f"{kind} {gname} {knobs}: numbers differ from the pinned "
+                 f"JAX reference")
+        if (r.rounds, r.sub_rounds) != (want["rounds"], want["sub_rounds"]):
+            fail(f"{kind} {gname} {knobs}: rounds/sub_rounds "
+                 f"{r.rounds}/{r.sub_rounds} differ from the pinned "
+                 f"{want['rounds']}/{want['sub_rounds']}")
+        if kind == "tips" and r.side != ref[gname]["side"]:
+            fail(f"tips peeled side {r.side}, pinned {ref[gname]['side']}")
+    tips = [r for kind, _g, _k, r in results if kind == "tips"]
+    ex = [r for kind, _g, k, r in results
+          if kind == "tips" and k.get("peel_mode") == "exact"]
+    rg = [r for kind, _g, k, r in results
+          if kind == "tips" and k.get("peel_mode") == "range"]
+    if not all(np.array_equal(t.numbers, tips[0].numbers) for t in tips):
+        fail("tip numbers differ between the tip calls")
+    if any(r.sub_rounds != ex[0].rounds for r in rg):
+        fail("range-mode sub_rounds differ from exact-mode rounds")
+    wings = [r for kind, g_, _k, r in results
+             if kind == "wings" and g_ == "PEEL_WINGS"]
+    if not all(np.array_equal(w.numbers, wings[0].numbers) for w in wings):
+        fail("wing numbers differ between the device wing calls")
+    print("peel: tip and wing numbers bitwise equal across calls and to the "
+          "pinned JAX reference; exact rounds == range sub_rounds", flush=True)
+    return tap, graphs["PEEL_TIPS"]
+
+
+def peel_kernel_rows(tap):
+    """Phase 8: the two peeling kernels against their plain versions on
+    inputs copied from the peeling path, timed beside their yardstick."""
+    from repro_torch.kernels import ops, ref as plain
+
+    rows = {}
+    for name in TAPPED:
+        samples = tap.samples[name]
+        if not samples:
+            fail(f"the peeling path gave {name} no inputs")
+        fn = getattr(ops, name)
+        plain_fn = getattr(plain, name + "_ref")
+        err = 0.0
+        for args in samples:
+            got, want = fn(*args), plain_fn(*args)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(got, want))
+        if err != 0:
+            fail(f"{name} differs from its plain version (max |err| {err})")
+        sizes = sorted(tap.sizes[name])
+        median = sizes[len(sizes) // 2]
+        args = min(samples, key=lambda a: abs(
+            (a[2].numel() if name == "bucket_update" else 0) - median))
+        counts, alive = args[0], args[1]
+        n = counts.numel()
+        nbytes = (counts.element_size() + 1) * n + 4
+        library_ms = None
+        if name == "bucket_update":
+            k = args[2].numel()
+            nbytes += (8 + counts.element_size()) * k
+            nbytes += counts.element_size() * n + 4 * 32
+            shape = (f"n={n} {counts.dtype} batch={k} (median of "
+                     f"{len(sizes)} calls; largest {sizes[-1]})")
+        else:
+            i32 = torch.iinfo(torch.int32).max
+            shape = f"n={n} {counts.dtype} ({len(sizes)} calls)"
+            library_ms = time_ms(lambda: torch.amin(torch.where(
+                alive, torch.clamp(counts, max=i32), i32)), iters=20)
+        b_ms, b_by = bound(nbytes, 0)
+        rows[name] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: fn(*args), iters=20),
+            plain_ms=time_ms(lambda: plain_fn(*args), iters=20),
+            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+            shape=f"{shape}; {len(samples)} path inputs checked",
+        )
+        print(f"kernel {name}: bitwise equal to plain on "
+              f"{len(samples)} inputs from the peeling path "
+              f"({rows[name]['shape']})", flush=True)
+
+    return rows
+
+
+def profile_peel_window(g_tips, dev, lo: int = 2000, hi: int = 3000):
+    """Phase 8, continued: one more ``peel_tips(engine="device")`` call
+    with ``torch.profiler`` recording only its rounds ``lo`` to ``hi``
+    (a profiler step at each round's host sync, so the trace stays
+    small); prints the device's busy time beside the host wall of the
+    same rounds, per host sync."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.core import peel_tips, pipeline
+
+    fetch = pipeline.fetch
+    marks = {}
+    rounds = 0
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=lo - 1, warmup=1, active=hi - lo,
+                                   repeat=1)) as prof:
+        def stepped(st, values):
+            nonlocal rounds
+            rounds += 1
+            if rounds in (lo, hi):
+                torch.cuda.synchronize()
+                marks[rounds] = time.perf_counter()
+            prof.step()
+            return fetch(st, values)
+
+        pipeline.fetch = stepped
+        try:
+            r = peel_tips(g_tips, engine="device",
+                          count_kwargs={"engine": "fused_cuda"}, device=dev)
+        finally:
+            pipeline.fetch = fetch
+        torch.cuda.synchronize()
+    if len(marks) < 2:
+        print(f"profile: the call ran {r.report.host_syncs} syncs, fewer "
+              f"than {hi} (not measured)", flush=True)
+        return
+    busy = [(e.self_device_time_total / 1e3, e.key, e.count)
+            for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU
+            and e.self_device_time_total > 0]
+    if not busy:
+        print("profile: the trace shows no device time (not measured)",
+              flush=True)
+        return
+    busy_ms = sum(ms for ms, _k, _c in busy)
+    wall_ms = (marks[hi] - marks[lo]) * 1e3
+    n = hi - lo
+    print(f"profile tips device bucket exact, rounds {lo}-{hi}: device busy "
+          f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall, idle share "
+          f"{1 - busy_ms / wall_ms:.4f}; per round (one host sync each): "
+          f"{wall_ms / n:.4f} ms wall, {busy_ms / n:.4f} ms device", flush=True)
+    for ms, key, count in sorted(busy, reverse=True)[:8]:
+        print(f"  {ms:10.3f} ms  {count:8d}x  {key[:80]}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs "
@@ -274,6 +561,7 @@ def main() -> int:
     from repro_torch.kernels import ops
 
     # -- 2. build ------------------------------------------------------
+    phase(2)
     ops.build()
     info = ops.build_info
     print(f"build: {info['seconds']:.1f} s (compiled={info['compiled']}) "
@@ -283,6 +571,7 @@ def main() -> int:
             print(f"  {line.strip()}", flush=True)
 
     # -- 3. graph ------------------------------------------------------
+    phase(3)
     with open(REFERENCE) as f:
         ref = json.load(f)
     t0 = time.perf_counter()
@@ -302,10 +591,12 @@ def main() -> int:
             fail(f"graph {key} {val} differs from the pinned {ref[key]}")
 
     # -- 4. kernels against their plain versions ------------------------
+    phase(4)
     rows = check_kernels(g, rg, ref, dev)
     torch.cuda.empty_cache()
 
     # -- 5. the main path ----------------------------------------------
+    phase(5)
     results = {}
     walls = {}
     launches = {name: 0 for name in ops.LAUNCHES}
@@ -360,9 +651,23 @@ def main() -> int:
           flush=True)
 
     # -- 6. where one fused_cuda call spends its time -------------------
+    phase(6)
     profile_call(g, dev, walls["fused_cuda"])
+    del g, rg, results, base
+    torch.cuda.empty_cache()
 
-    # -- 7. report ------------------------------------------------------
+    # -- 7. the peeling path ---------------------------------------------
+    phase(7)
+    tap, g_tips = peel_phase(dev, launches)
+
+    # -- 8. the peeling kernels against their plain versions -------------
+    phase(8)
+    rows.update(peel_kernel_rows(tap))
+    del tap
+    profile_peel_window(g_tips, dev)
+
+    # -- 9. report ------------------------------------------------------
+    phase(9)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         row = rows[name]

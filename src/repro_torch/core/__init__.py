@@ -1,7 +1,8 @@
-"""ParButterfly core: exact butterfly counting in PyTorch."""
+"""ParButterfly core: exact butterfly counting and peeling in PyTorch."""
 from .graph import BipartiteGraph, RankedGraph, preprocess
 from .ranking import RANKINGS, make_order, wedges_processed
 from .count import CountResult, count_butterflies, count_from_ranked
+from .peel import PeelResult, peel_tips, peel_wings
 from .resilience import (
     AccumulatorOverflowRisk,
     CapacityOverflow,
@@ -27,6 +28,9 @@ __all__ = [
     "CountResult",
     "count_butterflies",
     "count_from_ranked",
+    "PeelResult",
+    "peel_tips",
+    "peel_wings",
     "ResilienceError",
     "GraphValidationError",
     "CapacityOverflow",

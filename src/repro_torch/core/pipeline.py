@@ -1,4 +1,4 @@
-"""The plan -> execute -> report wedge pipeline, counting half.
+"""The plan -> execute -> report wedge pipeline: counting and peeling.
 
   **plan**: a :class:`WedgePlan` is a plain, serializable description of
   a wedge workload: vertex-aligned tile boundaries from
@@ -13,7 +13,11 @@
   **execute**: :func:`run_count_tiles` streams the vertex-aligned tiles
   through PyTorch ops (generate, aggregate, accumulate, discard);
   :func:`run_fused_cuda_tiles` hands the whole plan to the fused CUDA
-  kernel. Kernels are reached ONLY through ``kernels/ops.py``.
+  kernel. The peeling round loop (:func:`device_round_loop`,
+  :func:`stream_tiles`, :func:`drive_segments`) is driven from the host:
+  one host sync per round fetches the scalars that steer it (see
+  :func:`device_round_loop`). Kernels are reached ONLY through
+  ``kernels/ops.py``.
 
   **report**: :func:`execute_ladder` runs a degradation ladder under one
   :class:`~repro_torch.core.resilience.ResiliencePolicy` and records the
@@ -49,6 +53,7 @@ from .graph import RankedGraph
 from .wedges import (
     DeviceGraph,
     Wedges,
+    aligned_tile_end,
     host_wedge_counts,
     plan_wedge_chunks,
     slot_wedge_counts,
@@ -78,6 +83,22 @@ __all__ = [
     "fused_tile_inputs",
     "run_fused_cuda_tiles",
     "execute_count_plan",
+    # plan + execute: peeling
+    "I32_MAX",
+    "peel_tile_bounds",
+    "plan_peel",
+    "LoopState",
+    "fetch",
+    "compact",
+    "prefix_offsets",
+    "empty_hist",
+    "masked_state",
+    "apply_decrements",
+    "init_loop_state",
+    "tile_bounds",
+    "stream_tiles",
+    "device_round_loop",
+    "drive_segments",
     # report
     "execute_ladder",
 ]
@@ -93,7 +114,12 @@ DENSITY_HASH_THRESHOLD = 4.0
 # id instead of carrying a callable (plans must serialize).
 EXPANSIONS = {
     "count_wedges": "flat wedge ids -> (x1, x2, y) via wedges_at",
+    "peel_tips_2hop": "peeled vertices -> 2-hop wedge pairs (PEEL-V)",
+    "peel_wings_triples": "peeled edges -> butterfly edge triples via "
+                          "the degree-sorted CSR (PEEL-E)",
 }
+
+I32_MAX = int(np.iinfo(np.int32).max)
 
 
 def dtype_name(dtype) -> str:
@@ -327,6 +353,80 @@ def plan_count(
         hash_bits=hash_bits,
         accumulator=AccumulatorSpec(
             mode=mode, dtype=dtype_name(dtype), n_pad=rg.n_pad, m=rg.m,
+        ),
+    )
+
+
+def peel_tile_bounds(entity_work, n_tiles: int = 64) -> tuple:
+    """Entity-aligned coarse tiles over a peeling decomposition's static
+    per-entity expansion totals (per-vertex 2-hop totals for tips,
+    per-edge triple totals for wings): ``n_tiles`` equal-work quantiles
+    of the work prefix sum, deduplicated (a single heavy entity gets a
+    solo tile). These are the partition granularity of a peeling plan,
+    not per-round buffers. Returns ``(bounds, tile_wedges)`` tuples
+    ready for :class:`WedgePlan`."""
+    work = np.asarray(entity_work, dtype=np.int64)
+    n = int(work.shape[0])
+    if n == 0:
+        return (), ()
+    coff = np.concatenate([[0], np.cumsum(work)])
+    total = int(coff[-1])
+    k = max(1, min(int(n_tiles), n))
+    if total == 0:
+        # no expansion work anywhere: uniform entity-count tiles
+        cuts = np.unique(np.linspace(0, n, k + 1).astype(np.int64))
+    else:
+        targets = (np.arange(1, k) * total) / k
+        cuts = np.searchsorted(coff, targets, side="left")
+        cuts = np.unique(np.concatenate([[0], cuts, [n]]))
+    bounds = tuple(int(b) for b in cuts)
+    tile_wedges = tuple(
+        int(coff[bounds[i + 1]] - coff[bounds[i]])
+        for i in range(len(bounds) - 1)
+    )
+    return bounds, tile_wedges
+
+
+def plan_peel(
+    kind: str,
+    *,
+    expansion: str,
+    engine: str,
+    aggregation: str,
+    n_out: int,
+    dtype="int32",
+    capacity=(),
+    budget: int = I32_MAX,
+    hash_bits: Optional[int] = None,
+    entity_work=None,
+    coarse_tiles: int = 64,
+) -> WedgePlan:
+    """Plan of a peeling decomposition: the expansion id, accumulator
+    spec, planned capacity segments and, given the static per-entity
+    expansion totals as ``entity_work``, the coarse entity-aligned tiles
+    (:func:`peel_tile_bounds`). Per-round tiles depend on the frontier
+    and are cut by the round loop. Field for field the reference's
+    plan."""
+    if entity_work is not None:
+        bounds, tile_wedges = peel_tile_bounds(entity_work, coarse_tiles)
+    else:
+        bounds, tile_wedges = (), ()
+    return WedgePlan(
+        kind=kind,
+        expansion=expansion,
+        direction="low",
+        engine=engine,
+        aggregation=aggregation,
+        tile_aggregation=(),
+        bounds=bounds,
+        tile_wedges=tile_wedges,
+        chunk_cap=0,
+        w_start=0,
+        capacity=tuple((str(k), int(v)) for k, v in capacity),
+        budget=int(budget),
+        hash_bits=hash_bits,
+        accumulator=AccumulatorSpec(
+            mode="numbers", dtype=dtype_name(dtype), n_out=int(n_out),
         ),
     )
 
@@ -659,6 +759,229 @@ def execute_count_plan(
         return run_fused_cuda_tiles(dg, plan, rg_offsets, wv_slots)
     engine = "cuda" if plan.engine == "cuda" else "torch"
     return run_count_tiles(dg, plan, engine=engine)
+
+
+# ---------------------------------------------------------------------------
+# Execute layer: the peeling round-loop substrate
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class LoopState:
+    """State of the host-driven peeling round loop (both
+    decompositions). Tensors stay on the device; the host keeps the
+    round accounting and learns what it needs from one fetch per
+    round."""
+
+    b: torch.Tensor  # counts (peeled side / per edge)
+    alive: torch.Tensor  # bool mask
+    out: torch.Tensor  # tip / wing numbers, counts dtype
+    kappa: torch.Tensor  # () int32 peel threshold
+    mn: Optional[torch.Tensor]  # () int32 carried min (decrease_key="bucket")
+    hist: Optional[torch.Tensor]  # (NUM_BUCKETS,) carried occupancy or (0,)
+    n_alive: int
+    rounds: int = 0  # bucket rounds under range mode
+    subr: int = 0  # re-settle iterations (== rounds under exact mode)
+    sizes: list = dataclasses.field(default_factory=list)  # peeled per round
+    hi: int = 0  # active bucket's exclusive upper bound (range mode)
+    overflow: bool = False  # a planned capacity was exceeded
+    syncs: int = 0  # blocking device -> host fetches
+
+
+def fetch(st: LoopState, values) -> list:
+    """The loop's only way to read the device: one blocking copy of a
+    list of integer tensors (each () or 1-D), concatenated, counted in
+    ``st.syncs``."""
+    st.syncs += 1
+    return torch.cat([v.reshape(-1).to(torch.int64) for v in values]).tolist()
+
+
+def compact(mask: torch.Tensor, count: int) -> torch.Tensor:
+    """Ascending indices of the ``count`` True entries of ``mask``
+    without a host sync (``nonzero`` would block to size its output):
+    each True entry scatters its index to its rank; the others land on
+    a spare slot that is cut off."""
+    rank = torch.cumsum(mask, 0) - 1
+    slot = torch.where(mask, rank, count)
+    out = torch.empty(count + 1, dtype=torch.int64, device=mask.device)
+    out.scatter_(0, slot, torch.arange(mask.shape[0], device=mask.device))
+    return out[:count]
+
+
+def prefix_offsets(lens: torch.Tensor) -> torch.Tensor:
+    """Exclusive-prefix flat id space over per-segment lengths, int64
+    ``(len + 1,)``."""
+    out = torch.zeros(lens.shape[0] + 1, dtype=torch.int64,
+                      device=lens.device)
+    torch.cumsum(lens.to(torch.int64), 0, out=out[1:])
+    return out
+
+
+def empty_hist(want_hist: bool, device) -> torch.Tensor:
+    """Carried-occupancy placeholder: a (NUM_BUCKETS,) slot when range
+    mode consumes it, zero-length otherwise."""
+    n = _kops.NUM_BUCKETS if want_hist else 0
+    return torch.zeros(n, dtype=torch.int32, device=device)
+
+
+def masked_state(b: torch.Tensor, alive: torch.Tensor, want_hist: bool):
+    """Masked extract-min (plus occupancy when consumed) in the
+    ``bucket_min``/``bucket_update`` contracts: seeds the carried state
+    before round 0 and re-derives it on rounds with no frontier."""
+    if want_hist:
+        return _kops.bucket_state(b, alive)
+    return _kops.bucket_min(b, alive), empty_hist(False, b.device)
+
+
+def apply_decrements(b, alive, tgt, dec, decrease_key: str,
+                     want_hist: bool = False):
+    """Apply one aggregated update batch (``tgt`` outside ``[0, n)`` is
+    dropped, ``dec`` in the counts dtype).
+
+    ``"scatter"``: ``b`` is decremented in place (the loop owns it) and
+    the round loop runs its own ``bucket_min``. ``"bucket"``: the
+    batched decrease-key kernel ``ops.bucket_update``, which returns the
+    updated counts with their masked min and occupancy from the same
+    pass. Returns ``(b, min, hist)``; min and hist are None under
+    ``"scatter"``, and hist is zero-length unless ``want_hist``."""
+    if decrease_key == "bucket":
+        nb, mn, hist = _kops.bucket_update(b, alive, tgt, dec)
+        if not want_hist:
+            hist = empty_hist(False, b.device)
+        return nb, mn, hist
+    n = b.shape[0]
+    ok = (tgt >= 0) & (tgt < n)
+    b.index_add_(0, torch.where(ok, tgt, 0), torch.where(ok, -dec, 0))
+    return b, None, None
+
+
+def init_loop_state(b0: torch.Tensor, n_out: int, *, decrease_key: str,
+                    peel_mode: str) -> LoopState:
+    """Round-0 state of :func:`device_round_loop`; ``b0`` becomes the
+    loop's own count tensor."""
+    dev = b0.device
+    alive = torch.ones(n_out, dtype=torch.bool, device=dev)
+    want_hist = peel_mode == "range" and decrease_key == "bucket"
+    mn = hist = None
+    if decrease_key == "bucket":
+        mn, hist = masked_state(b0, alive, want_hist)
+    return LoopState(
+        b=b0, alive=alive, out=torch.zeros_like(b0),
+        kappa=torch.zeros((), dtype=torch.int32, device=dev), mn=mn,
+        hist=hist, n_alive=int(n_out),
+    )
+
+
+def tile_bounds(total: int, tile_cap: int, roff=None) -> list:
+    """A round's tiles ``[(ts, te), ...]`` over the flat id space
+    ``[0, total)``. With the host segment offsets ``roff`` the tiles cut
+    only at segment boundaries (:func:`~.wedges.aligned_tile_end`, for
+    the C(d, 2) tip subtract); without, they advance by ``tile_cap``
+    (linear subtracts split exactly). No tile is padded."""
+    out = []
+    ts = 0
+    while ts < total:
+        if roff is None:
+            te = min(ts + tile_cap, total)
+        else:
+            te = aligned_tile_end(roff, ts, tile_cap)
+        out.append((ts, te))
+        ts = te
+    return out
+
+
+def stream_tiles(b, alive, bounds, tile_fn, *, decrease_key: str,
+                 want_hist: bool):
+    """Run ``tile_fn(b, ts, te) -> (b, mn, hist)`` over one round's
+    tiles. Under ``decrease_key="bucket"`` the last tile's pass already
+    carries the post-round min and occupancy; a round with no tiles
+    re-derives them with :func:`masked_state`."""
+    mn = hist = None
+    for ts, te in bounds:
+        b, mn, hist = tile_fn(b, ts, te)
+    if decrease_key == "bucket" and not bounds:
+        mn, hist = masked_state(b, alive, want_hist)
+    return b, mn, hist
+
+
+def device_round_loop(st: LoopState, expand, work, *, decrease_key: str,
+                      peel_mode: str) -> LoopState:
+    """The round loop shared by the tips and wings device engines:
+    extract-min (carried, or the ``bucket_min`` kernel), κ update,
+    exact-vs-range round accounting, peel-set selection and assignment.
+
+    Each round computes on the device the masked min, κ, the peel set,
+    its size, the range-mode bucket selection and the frontier totals
+    (each row of the static per-entity sizes ``work``, a ``(k, n_out)``
+    int64 tensor, summed over the peel set), and fetches them to the
+    host in ONE blocking copy (:func:`fetch`): the host then knows
+    whether to stop, how to count the round and how large the frontier
+    is, so the expansion sizes its tensors without further syncs. This
+    is where the port departs from the reference, whose whole loop is
+    one device ``while_loop`` with a single sync per decomposition.
+
+    ``expand(st, peel, alive_prev, n_peel, totals) -> (b, overflow, mn,
+    hist)`` turns the round's peel set into count decrements (``totals``
+    are the host values of the frontier totals). Range
+    mode (``peel_mode="range"``): a new bucket round starts when the
+    min has left the active range ``[.., hi)``; the next range is the
+    lowest non-empty geometric bucket, from the carried occupancy under
+    ``decrease_key="bucket"`` and from the min's bit length otherwise
+    (identical by construction). Iterations inside a bucket replay the
+    exact κ trajectory, so the numbers equal exact mode's."""
+    want_hist = peel_mode == "range" and decrease_key == "bucket"
+    dtype = st.b.dtype
+    while st.n_alive > 0 and not st.overflow:
+        if decrease_key == "bucket":
+            mn = st.mn
+        else:
+            mn = _kops.bucket_min(st.b, st.alive)
+        kappa = torch.maximum(st.kappa, mn)
+        peel = st.alive & (st.b <= kappa)
+        values = [mn, peel.sum()]
+        if want_hist:
+            values.append(_kops.lowest_nonempty_bucket(st.hist))
+        host = fetch(st, values + [(work * peel).sum(1)])
+        mn_h, n_peel = host[0], host[1]
+        tot = host[3:] if want_hist else host[2:]
+        st.subr += 1
+        if peel_mode == "range":
+            if mn_h >= st.hi:
+                k_sel = host[2] if want_hist else int(mn_h).bit_length()
+                st.hi = _kops.bucket_upper_bound(k_sel)
+                st.rounds += 1
+                st.sizes.append(0)
+        else:
+            st.rounds += 1
+            st.sizes.append(0)
+        st.sizes[-1] += n_peel
+        st.kappa = kappa
+        st.out = torch.where(peel, kappa.to(dtype), st.out)
+        alive_prev = st.alive
+        st.alive = st.alive & ~peel
+        st.n_alive -= n_peel
+        if st.n_alive == 0:
+            break  # nothing left to subtract from
+        b, ovf, st.mn, st.hist = expand(st, peel, alive_prev, n_peel, tot)
+        if ovf:
+            st.overflow = True
+        else:
+            st.b = b
+    return st
+
+
+def drive_segments(run, state: LoopState) -> Optional[LoopState]:
+    """Run the round loop once (the fixed capacity schedule: one
+    segment) and fetch the numbers to the host, one more counted sync.
+    Returns the final state with ``out`` as a numpy array, or None when
+    a planned capacity overflowed (callers descend to the host
+    engine)."""
+    st = run(state)
+    if st.overflow:
+        return None
+    st.syncs += 1
+    st.out = st.out.cpu().numpy()
+    return st
 
 
 # ---------------------------------------------------------------------------

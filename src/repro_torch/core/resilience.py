@@ -264,6 +264,9 @@ class ExecutionReport:
     # applied scale) — None for exact results
     estimator: Optional[str] = None
     checkpoint_restores: int = 0  # supervisor rollbacks to a snapshot
+    # blocking device -> host fetches the peeling round loops made,
+    # summed over every rung attempted
+    host_syncs: int = 0
     wall_s: float = 0.0  # total seconds across all rung attempts
     deadline_s: Optional[float] = None  # requested budget (if any)
     deadline_slack_s: Optional[float] = None  # budget left at completion
@@ -307,6 +310,8 @@ class ExecutionReport:
         base = f"{self.workload}: requested={self.requested} {path}"
         if self.checkpoint_restores:
             base += f" restores={self.checkpoint_restores}"
+        if self.host_syncs:
+            base += f" syncs={self.host_syncs}"
         if self.wall_s:
             base += f" wall={self.wall_s:.3f}s"
         if self.deadline_slack_s is not None:

@@ -48,6 +48,9 @@ __all__ = [
     "degree_sorted_csr",
     "greedy_vertex_blocks",
     "plan_wedge_chunks",
+    "ragged_slots_at",
+    "aligned_tile_end",
+    "expand_ragged",
 ]
 
 # Streaming/tile wedge budget used off the card (the reference package's
@@ -356,3 +359,52 @@ def plan_wedge_chunks(
     bounds, chunk = greedy_vertex_blocks(wv, rg.n_pad, target=int(max_chunk))
     chunk_cap = max(pad, ((chunk + pad - 1) // pad) * pad)
     return bounds, chunk_cap
+
+
+def ragged_slots_at(roff: torch.Tensor, starts: torch.Tensor,
+                    wid: torch.Tensor):
+    """Recover ``(segment, absolute position)`` for flat ragged ids.
+
+    ``roff`` is the exclusive prefix sum of the segment lengths,
+    ``starts[i]`` the absolute start of segment ``i``'s range. Flat id
+    ``w`` belongs to the segment ``seg`` with ``roff[seg] <= w <
+    roff[seg + 1]``, at position ``starts[seg] + w - roff[seg]``. Ids
+    are clamped into ``[0, roff[-1])``; callers mask invalid lanes.
+    The peeling subtract calls this once per frontier tile, so no round
+    materializes its whole frontier expansion."""
+    total = roff[-1]
+    kc = torch.minimum(wid.to(torch.int64), torch.clamp(total - 1, min=0))
+    seg = torch.searchsorted(roff, kc, right=True) - 1
+    seg = torch.clamp(seg, 0, starts.shape[0] - 1)
+    return seg, starts[seg] + kc - roff[seg]
+
+
+def aligned_tile_end(roff, ts: int, tile_cap: int) -> int:
+    """Largest segment boundary in ``roff`` at most ``ts + tile_cap``.
+
+    Greedy tile planning for the peeling subtract: tiles of a round's
+    frontier wedge space cut only at iterating-endpoint boundaries (no
+    endpoint-pair group may span a tile, or its C(d, 2) would split).
+    Callers guarantee ``tile_cap`` is at least the largest segment, so
+    the returned boundary advances past ``ts`` whenever ``ts`` is a
+    boundary below ``roff[-1]``. ``roff`` is a host array here: the
+    port plans a round's tiles on the host and pads none of them."""
+    roff = np.asarray(roff)
+    ub = int(np.searchsorted(roff, int(ts) + int(tile_cap), side="right")) - 1
+    return int(roff[min(max(ub, 0), roff.shape[0] - 1)])
+
+
+def expand_ragged(starts: torch.Tensor, lens: torch.Tensor, cap: int):
+    """Flatten the ranges ``[starts[i], starts[i] + lens[i])`` into a
+    ``(cap,)`` batch: flat slot ``k`` belongs to segment ``seg[k]`` at
+    absolute position ``pos[k]``; ``valid`` masks slots beyond the true
+    total, which comes back as ``total`` (a () tensor) so callers can
+    detect ``total > cap``. The port passes the exact total as ``cap``
+    (known from the round's one host sync), so no slot is padding.
+    Returns ``(seg, pos, valid, total)``."""
+    roff = torch.zeros(lens.shape[0] + 1, dtype=torch.int64,
+                       device=lens.device)
+    torch.cumsum(lens.to(torch.int64), 0, out=roff[1:])
+    k = torch.arange(cap, dtype=torch.int64, device=lens.device)
+    seg, pos = ragged_slots_at(roff, starts.to(torch.int64), k)
+    return seg, pos, k < roff[-1], roff[-1]

@@ -1,4 +1,4 @@
-// Shared helpers of the port's counting kernels (CUDA C++, sm_90a).
+// Shared helpers of the port's kernels (CUDA C++, sm_90a).
 //
 // Every kernel launches on the caller's stream, allocates nothing (the
 // Python wrapper allocates outputs and scratch with torch), and every
@@ -6,6 +6,7 @@
 // the wrapper raises on a launch that was refused.
 #pragma once
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -28,6 +29,16 @@ static inline unsigned int grid_for(long long n) {
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
   return static_cast<unsigned int>(blocks);
+}
+
+// A count as int32, wider values clamped (not wrapped) to INT32_MAX: the
+// peeling kernels' contract for int64 counts.
+template <typename T>
+__device__ __forceinline__ int32_t clamp_i32(T v) {
+  if constexpr (sizeof(T) > 4) {
+    if (v > static_cast<T>(INT_MAX)) v = static_cast<T>(INT_MAX);
+  }
+  return static_cast<int32_t>(v);
 }
 
 }  // namespace bf

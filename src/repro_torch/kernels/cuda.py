@@ -33,11 +33,14 @@ __all__ = [
     "wedge_histogram",
     "butterfly_combine",
     "fused_count_tiles",
+    "bucket_min",
+    "bucket_update",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("wedge_histogram.cu", "butterfly_combine.cu", "fused_count_tiles.cu")
+SOURCES = ("wedge_histogram.cu", "butterfly_combine.cu", "fused_count_tiles.cu",
+           "bucket_min.cu", "bucket_update.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -70,6 +73,8 @@ _SIGNATURES = {
         _P, _I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
         _P, _P, _L, _P, _P, _P, _P, _P, _P,
     ),
+    "bf_bucket_min": (_P, _I, _P, _L, _P, _P),
+    "bf_bucket_update": (_P, _I, _P, _L, _P, _P, _L, _P, _P, _P, _P),
 }
 
 
@@ -292,3 +297,62 @@ def fused_count_tiles(
             "scratch was sized below 2 x the largest pass"
         )
     return total[0], vertex, edge
+
+
+_I32_MAX = 2**31 - 1
+_COUNT_DTYPES = (torch.int32, torch.int64)
+
+
+def _counts(counts: torch.Tensor, name: str) -> torch.Tensor:
+    counts = counts.reshape(-1)
+    if counts.dtype not in _COUNT_DTYPES:
+        raise ValueError(f"{name}: counts must be int32 or int64, got "
+                         f"{counts.dtype}")
+    if not counts.is_contiguous():
+        raise ValueError(f"{name}: counts must be contiguous")
+    return counts
+
+
+def bucket_min(counts: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """() int32 masked min of int32/int64 ``counts`` (clamped to
+    INT32_MAX) over ``alive``; INT32_MAX when nothing is alive."""
+    lib = build()
+    dev = counts.device
+    counts = _counts(counts, "bucket_min")
+    alive = _mask(alive)
+    _require(alive, "alive", torch.bool, dev, counts.shape)
+    out = torch.full((1,), _I32_MAX, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.bf_bucket_min(
+            _ptr(counts), int(counts.dtype == torch.int64), _ptr(alive),
+            counts.numel(), _ptr(out),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _check(lib, code, "bucket_min")
+    return out[0]
+
+
+def bucket_update(counts: torch.Tensor, alive: torch.Tensor,
+                  idx: torch.Tensor, dec: torch.Tensor):
+    """``(new_counts, min, hist)``: ``counts - scatter_add(idx, dec)``
+    in the counts dtype (int32 or int64), its () int32 masked min and
+    its (32,) int32 bit-length occupancy over ``alive``. ``idx`` is cast
+    to int64 and ``dec`` to the counts dtype when they differ."""
+    lib = build()
+    dev = counts.device
+    counts = _counts(counts, "bucket_update")
+    alive = _mask(alive)
+    _require(alive, "alive", torch.bool, dev, counts.shape)
+    idx = idx.reshape(-1).to(torch.int64).contiguous()
+    dec = dec.reshape(-1).to(counts.dtype).contiguous()
+    _require(idx, "idx", torch.int64, dev)
+    _require(dec, "dec", counts.dtype, dev, idx.shape)
+    new = torch.empty_like(counts)
+    mn = torch.full((1,), _I32_MAX, dtype=torch.int32, device=dev)
+    hist = torch.zeros(32, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.bf_bucket_update(
+            _ptr(counts), int(counts.dtype == torch.int64), _ptr(alive),
+            counts.numel(), _ptr(idx), _ptr(dec), idx.numel(), _ptr(new),
+            _ptr(mn), _ptr(hist), torch.cuda.current_stream(dev).cuda_stream)
+    _check(lib, code, "bucket_update")
+    return new, mn[0], hist

@@ -1,5 +1,5 @@
-"""Dispatch for the counting kernels: the only module that reaches the
-hand-written CUDA kernels (``kernels/cuda.py``).
+"""Dispatch for the counting and peeling kernels: the only module that
+reaches the hand-written CUDA kernels (``kernels/cuda.py``).
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it computes the kernel's plain PyTorch version (``kernels/ref``).
@@ -25,14 +25,27 @@ __all__ = [
     "wedge_histogram",
     "butterfly_combine",
     "fused_count_tiles",
+    "bucket_min",
+    "bucket_state",
+    "bucket_update",
+    # peeling-kernel contract constants and pure helpers, re-exported so
+    # core/ reaches them through this dispatch module
+    "NUM_BUCKETS",
+    "bit_length",
+    "bucket_upper_bound",
+    "lowest_nonempty_bucket",
 ]
 
 MAX_TILE_CAP = _cuda.MAX_TILE_CAP
+NUM_BUCKETS = _ref.NUM_BUCKETS
+bit_length = _ref.bit_length
+bucket_upper_bound = _ref.bucket_upper_bound
+lowest_nonempty_bucket = _ref.lowest_nonempty_bucket
 build = _cuda.build
 build_info = _cuda.build_info
 
 LAUNCHES = {"wedge_histogram": 0, "butterfly_combine": 0,
-            "fused_count_tiles": 0}
+            "fused_count_tiles": 0, "bucket_min": 0, "bucket_update": 0}
 
 
 def reset_launches() -> None:
@@ -73,6 +86,39 @@ def butterfly_combine(d: torch.Tensor, rep: torch.Tensor,
         return _ref.butterfly_combine_ref(d, rep, valid)
     out = _cuda.butterfly_combine(d, rep, valid)
     LAUNCHES["butterfly_combine"] += 1
+    return out
+
+
+def bucket_min(counts: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """() int32 min of ``counts`` where ``alive``, INT32_MAX if none;
+    int64 counts are clamped to INT32_MAX, not wrapped."""
+    _faults.maybe_oom("ops.bucket_min")
+    if not _on_cuda(counts, "bucket_min"):
+        return _ref.bucket_min_ref(counts, alive)
+    out = _cuda.bucket_min(counts, alive)
+    LAUNCHES["bucket_min"] += 1
+    return out
+
+
+def bucket_state(counts: torch.Tensor, alive: torch.Tensor):
+    """``(min, hist)`` of the counts with no decrease-key batch. Plain
+    PyTorch on every device: it only seeds the peeling loops' carried
+    state and re-derives it on rounds with no frontier, off the
+    per-tile path."""
+    return _ref.bucket_state_ref(counts, alive)
+
+
+def bucket_update(counts: torch.Tensor, alive: torch.Tensor,
+                  idx: torch.Tensor, dec: torch.Tensor):
+    """Batched decrease-key: ``(counts - scatter_add(idx, dec), min over
+    alive, (32,) bit-length occupancy over alive)`` in one pass; ``idx``
+    outside ``[0, n)`` is dropped. Any batch size, int32 or int64
+    counts."""
+    _faults.maybe_oom("ops.bucket_update")
+    if not _on_cuda(counts, "bucket_update"):
+        return _ref.bucket_update_ref(counts, alive, idx, dec)
+    out = _cuda.bucket_update(counts, alive, idx, dec)
+    LAUNCHES["bucket_update"] += 1
     return out
 
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three counting kernels.
+"""Plain PyTorch versions of the counting and peeling kernels.
 
 Each function computes exactly what its CUDA kernel computes, on any
 device: ``kernels/ops.py`` takes these for a tensor on the CPU, the CPU
@@ -11,11 +11,24 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "NUM_BUCKETS",
+    "I32_MAX",
     "wedge_histogram_ref",
     "butterfly_combine_ref",
     "choose2_limbs",
     "fused_count_tiles_ref",
+    "bit_length",
+    "bucket_upper_bound",
+    "lowest_nonempty_bucket",
+    "bucket_min_ref",
+    "bucket_state_ref",
+    "bucket_update_ref",
 ]
+
+# Geometric count ranges of the peeling occupancy histogram: bucket k
+# holds the int32 values with bit_length k, so 32 buckets cover [0, 2^31).
+NUM_BUCKETS = 32
+I32_MAX = 2**31 - 1
 
 
 def wedge_histogram_ref(keys: torch.Tensor, valid: torch.Tensor,
@@ -123,3 +136,79 @@ def fused_count_tiles_ref(
             edge.index_add_(0, uid[e], dm1)
             edge.index_add_(0, uid[pos], dm1)
     return total, vertex, edge
+
+
+def bit_length(v: torch.Tensor) -> torch.Tensor:
+    """``bit_length(max(v, 0))`` per entry, int64: the occupancy bucket
+    of a count (bucket ``k`` holds ``[2^(k-1), 2^k)``, bucket 0 holds
+    exactly {0}). Values are taken as int32 (callers clamp first)."""
+    v = torch.clamp(v.to(torch.int64), min=0)
+    # built on the device (no host-to-device copy): 2^0 .. 2^30
+    powers = torch.ones(31, dtype=torch.int64, device=v.device) << torch.arange(
+        31, device=v.device)
+    return torch.searchsorted(powers, v, right=True)
+
+
+def bucket_upper_bound(k: int) -> int:
+    """Exclusive upper bound ``2^k`` of geometric bucket ``k``, clamped
+    to INT32_MAX for the top bucket."""
+    return I32_MAX if k >= 31 else 1 << k
+
+
+def lowest_nonempty_bucket(hist: torch.Tensor) -> torch.Tensor:
+    """Index of the lowest non-empty bucket of an occupancy histogram,
+    ``NUM_BUCKETS`` when all are empty; a () int64 tensor."""
+    idx = torch.arange(hist.shape[0], dtype=torch.int64, device=hist.device)
+    idx = torch.where(hist > 0, idx, NUM_BUCKETS)
+    return torch.cat([idx, idx.new_full((1,), NUM_BUCKETS)]).min()
+
+
+def _clamped_i32(counts: torch.Tensor) -> torch.Tensor:
+    """Counts as int32, wider values clamped (not wrapped) to INT32_MAX."""
+    if counts.element_size() > 4:
+        counts = torch.clamp(counts, max=I32_MAX)
+    return counts.to(torch.int32)
+
+
+def _masked_min(c32: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    inf = c32.new_full((1,), I32_MAX)
+    return torch.cat([torch.where(live, c32, inf), inf]).min()
+
+
+def _min_and_hist(c32: torch.Tensor, alive: torch.Tensor):
+    live = alive.reshape(-1).to(torch.int32) > 0
+    hist = torch.zeros(NUM_BUCKETS, dtype=torch.int32, device=c32.device)
+    hist.index_add_(0, bit_length(c32), live.to(torch.int32))
+    return _masked_min(c32, live), hist
+
+
+def bucket_min_ref(counts: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """Min of ``counts`` where ``alive``, INT32_MAX if none alive; a ()
+    int32 tensor. Wider-than-int32 counts are clamped to INT32_MAX."""
+    return _masked_min(_clamped_i32(counts.reshape(-1)),
+                       alive.reshape(-1).to(torch.int32) > 0)
+
+
+def bucket_state_ref(counts: torch.Tensor, alive: torch.Tensor):
+    """``(min, hist)`` of ``bucket_update_ref`` with an empty batch: the
+    masked min in the ``bucket_min`` contract and the (NUM_BUCKETS,)
+    int32 occupancy of ``bit_length(max(v, 0))`` over alive entries."""
+    return _min_and_hist(_clamped_i32(counts.reshape(-1)), alive)
+
+
+def bucket_update_ref(counts: torch.Tensor, alive: torch.Tensor,
+                      idx: torch.Tensor, dec: torch.Tensor):
+    """Batched decrease-key: ``(new_counts, min, hist)``.
+
+    ``new_counts[i] = counts[i] - sum(dec[idx == i])`` in the counts
+    dtype; entries of ``idx`` outside ``[0, n)`` (the ``n`` sentinel
+    included) are dropped. ``min`` and ``hist`` are those of
+    :func:`bucket_state_ref` over the updated counts."""
+    counts = counts.reshape(-1)
+    n = counts.shape[0]
+    idx = idx.reshape(-1).to(torch.int64)
+    keep = (idx >= 0) & (idx < n)
+    new = counts.clone()
+    new.index_add_(0, idx[keep], -dec.reshape(-1)[keep].to(counts.dtype))
+    mn, hist = _min_and_hist(_clamped_i32(new), alive)
+    return new, mn, hist

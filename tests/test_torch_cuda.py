@@ -1,4 +1,5 @@
-"""Card tests of the port's hand-written CUDA kernels.
+"""Card tests of the port's hand-written CUDA kernels and the peeling
+engines that launch them.
 
 Every test here needs an NVIDIA card: the ``card`` fixture skips when
 there is none, so on a CPU-only host they all skip. On the card run
@@ -13,7 +14,7 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from repro_torch.core import count_butterflies  # noqa: E402
+from repro_torch.core import count_butterflies, peel_tips, peel_wings  # noqa: E402
 from repro_torch.core.graph import BipartiteGraph, preprocess  # noqa: E402
 from repro_torch.core.pipeline import (  # noqa: E402
     fused_tile_inputs,
@@ -149,3 +150,69 @@ def test_device_ranking_on_card(card):
     host = make_order(g, "approx_complement_degeneracy")
     dev = make_order(g, "approx_complement_degeneracy_device", device=card)
     assert np.array_equal(host, dev)
+
+
+def _bucket_inputs(card, n, k, dtype, seed):
+    rng = np.random.default_rng(seed)
+    hi = 1 << 40 if dtype == torch.int64 else 1 << 30
+    counts = torch.as_tensor(rng.integers(-5, hi, n), dtype=dtype,
+                             device=card)
+    alive = torch.as_tensor(rng.random(n) < 0.6, device=card)
+    idx = torch.as_tensor(rng.integers(-3, n + 4, k), dtype=torch.int64,
+                          device=card)
+    dec = torch.as_tensor(rng.integers(0, 1 << 20, k), dtype=dtype,
+                          device=card)
+    return counts, alive, idx, dec
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", [1, 4097, 300_000])
+def test_bucket_min_kernel_matches_plain(card, dtype, n):
+    counts, alive, _, _ = _bucket_inputs(card, n, 0, dtype, 7)
+    before = ops.LAUNCHES["bucket_min"]
+    got = ops.bucket_min(counts, alive)
+    assert ops.LAUNCHES["bucket_min"] == before + 1
+    _equal([got], [ref.bucket_min_ref(counts, alive)])
+    none = torch.zeros_like(alive)
+    assert int(ops.bucket_min(counts, none)) == 2**31 - 1
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n,k", [(1, 0), (5000, 1), (45_000, 70_000),
+                                 (300_000, 4096)])
+def test_bucket_update_kernel_matches_plain(card, dtype, n, k):
+    args = _bucket_inputs(card, n, k, dtype, 8)
+    before = ops.LAUNCHES["bucket_update"]
+    got = ops.bucket_update(*args)
+    assert ops.LAUNCHES["bucket_update"] == before + 1
+    _equal(got, ref.bucket_update_ref(*args))
+
+
+@pytest.mark.parametrize("decrease_key,kernel", [("bucket", "bucket_update"),
+                                                 ("scatter", "bucket_min")])
+@pytest.mark.parametrize("peel_mode", ["exact", "range"])
+def test_peel_device_on_card_launches_and_matches_cpu(card, decrease_key,
+                                                      kernel, peel_mode):
+    """The device peeling engines on the card, with default (int64)
+    counts, launch their kernel and give the CPU port's numbers."""
+    g = powerlaw_bipartite(600, 500, 4000, seed=7)
+    for fn in (peel_tips, peel_wings):
+        want = fn(g, engine="device", peel_mode=peel_mode, device="cpu")
+        ops.reset_launches()
+        got = fn(g, engine="device", decrease_key=decrease_key,
+                 peel_mode=peel_mode, device=card)
+        assert ops.LAUNCHES[kernel] > 0, fn.__name__
+        assert got.report.final_rung == "device"
+        assert got.numbers.dtype == np.int64
+        assert np.array_equal(got.numbers, want.numbers), fn.__name__
+        assert (got.rounds, got.sub_rounds) == (want.rounds, want.sub_rounds)
+        assert np.array_equal(got.round_sizes, want.round_sizes)
+
+
+def test_peel_wings_host_on_card_launches_bucket_min(card):
+    g = powerlaw_bipartite(300, 250, 2000, seed=7)
+    want = peel_wings(g, engine="host", device="cpu")
+    ops.reset_launches()
+    got = peel_wings(g, engine="host", device=card)
+    assert ops.LAUNCHES["bucket_min"] == got.rounds > 0
+    assert np.array_equal(got.numbers, want.numbers)

@@ -1,8 +1,11 @@
-"""The port's three counting kernels (plain PyTorch versions, the path
-``kernels/ops`` takes for CPU tensors) against the reference package's
-Pallas kernels in interpret mode, on seeded numpy inputs. Integer
-outputs must agree bit for bit (tolerance 0); the reference's 64-bit
-values come as (lo, hi) int32 limbs and are recombined in numpy."""
+"""The port's counting and peeling kernels (plain PyTorch versions, the
+path ``kernels/ops`` takes for CPU tensors) against the reference
+package's Pallas kernels in interpret mode and its jnp references, on
+seeded numpy inputs. Integer outputs must agree bit for bit (tolerance
+0); the reference's 64-bit values come as (lo, hi) int32 limbs and are
+recombined in numpy. JAX runs without x64 here, so the int64 peeling
+contracts (clamp, no wrap) are held against the reference on the
+clamped int32 values and against numpy on the int64 ones."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -15,6 +18,14 @@ from repro.core import preprocess as ref_preprocess  # noqa: E402
 from repro.core.wedges import device_graph as ref_device_graph  # noqa: E402
 from repro.data.graphs import powerlaw_bipartite as ref_powerlaw  # noqa: E402
 from repro.kernels import ops as ref_ops  # noqa: E402
+from repro.kernels import ref as ref_ref  # noqa: E402
+from repro.kernels.bucket_min import bucket_min_pallas  # noqa: E402
+from repro.kernels.bucket_update import (  # noqa: E402
+    bit_length as ref_bit_length,
+    bucket_update_pallas,
+    bucket_upper_bound as ref_bucket_upper_bound,
+    lowest_nonempty_bucket as ref_lowest_nonempty_bucket,
+)
 from repro_torch.core.graph import RankedGraph  # noqa: E402
 from repro_torch.core.pipeline import fused_tile_inputs, plan_count  # noqa: E402
 from repro_torch.core.wedges import device_graph, host_wedge_counts  # noqa: E402
@@ -130,3 +141,138 @@ def test_wrappers_refuse_other_devices():
         ops.wedge_histogram(keys, keys, 8)
     with pytest.raises(ValueError, match="not supported"):
         ops.butterfly_combine(keys, keys, keys)
+    with pytest.raises(ValueError, match="not supported"):
+        ops.bucket_min(keys, keys)
+    with pytest.raises(ValueError, match="not supported"):
+        ops.bucket_update(keys, keys, keys, keys)
+
+
+I32_MAX = np.iinfo(np.int32).max
+
+
+def _bucket_inputs(n, k, seed, wide=False, p_alive=0.6):
+    """Seeded peeling-kernel inputs: counts (int64 up to 2^40 when
+    ``wide``, else int32 below 2^30 with a few negatives), an alive
+    mask, and a decrease-key batch whose targets straddle ``[0, n)``
+    (negatives, the ``n`` sentinel and beyond are all dropped)."""
+    rng = np.random.default_rng(seed)
+    if wide:
+        c = rng.integers(-5, 1 << 40, n).astype(np.int64)
+        c[: min(n, 3)] = np.array([I32_MAX, I32_MAX + 1, 7])[: min(n, 3)]
+    else:
+        c = rng.integers(-5, 1 << 30, n).astype(np.int32)
+    alive = (rng.random(n) < p_alive).astype(np.int32)
+    idx = rng.integers(-3, n + 4, k).astype(np.int32)
+    idx[: min(k, 2)] = np.array([n, -1])[: min(k, 2)]
+    dec = rng.integers(0, 1 << 20, k).astype(c.dtype)
+    return c, alive, idx, dec
+
+
+def _hist_oracle(v64, alive):
+    bl = np.array([max(int(x), 0).bit_length() for x in v64], np.int64)
+    return np.bincount(bl, weights=alive, minlength=32).astype(np.int64)
+
+
+@pytest.mark.parametrize("n,seed,p_alive", [
+    (1, 0, 0.5), (700, 1, 0.5), (2049, 2, 0.0), (4096, 3, 0.9),
+])
+def test_bucket_min_matches_pallas(n, seed, p_alive):
+    c, alive, _, _ = _bucket_inputs(n, 0, seed, p_alive=p_alive)
+    want = bucket_min_pallas(jnp.asarray(c), jnp.asarray(alive))
+    want_ref = ref_ref.bucket_min_ref(jnp.asarray(c), jnp.asarray(alive))
+    before = dict(ops.LAUNCHES)
+    got = ops.bucket_min(torch.as_tensor(c), torch.as_tensor(alive))
+    assert ops.LAUNCHES == before  # a CPU tensor launches no kernel
+    assert got.dtype == torch.int32 and got.shape == ()
+    assert int(got) == int(want) == int(want_ref)
+    if not alive.any():
+        assert int(got) == I32_MAX
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bucket_min_int64_clamps(seed):
+    """int64 counts are clamped to INT32_MAX, not wrapped: the result
+    equals the reference on the clamped int32 values; with only wide
+    counts alive the min is INT32_MAX itself."""
+    c, alive, _, _ = _bucket_inputs(3000, 0, seed, wide=True)
+    c32 = np.minimum(c, I32_MAX).astype(np.int32)
+    want = ref_ref.bucket_min_ref(jnp.asarray(c32), jnp.asarray(alive))
+    got = ops.bucket_min(torch.as_tensor(c), torch.as_tensor(alive))
+    assert int(got) == int(want)
+    only_wide = (c >= I32_MAX).astype(np.int32)
+    assert int(ops.bucket_min(torch.as_tensor(c),
+                              torch.as_tensor(only_wide))) == I32_MAX
+    assert int(ops.bucket_min(torch.as_tensor(c[:0]),
+                              torch.as_tensor(alive[:0]))) == I32_MAX
+
+
+@pytest.mark.parametrize("n,k,seed", [
+    (1, 1, 0), (500, 64, 1), (1500, 300, 2), (4096, 4096, 3),
+])
+def test_bucket_update_matches_pallas(n, k, seed):
+    c, alive, idx, dec = _bucket_inputs(n, k, seed)
+    args = [jnp.asarray(x) for x in (c, alive, idx, dec)]
+    want = bucket_update_pallas(*args)
+    want_ref = ref_ref.bucket_update_ref(*args)
+    got = ops.bucket_update(*(torch.as_tensor(x) for x in (c, alive, idx,
+                                                             dec)))
+    for a, b, r in zip(got, want, want_ref):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+        assert np.array_equal(a.numpy(), np.asarray(r))
+    new, mn, hist = got
+    assert new.dtype == torch.int32 and mn.dtype == torch.int32
+    assert hist.dtype == torch.int32 and hist.shape == (32,)
+    keep = (idx >= 0) & (idx < n)
+    exp = c.astype(np.int64)
+    np.subtract.at(exp, idx[keep], dec[keep].astype(np.int64))
+    assert np.array_equal(new.numpy().astype(np.int64), exp)
+    assert np.array_equal(hist.numpy(), _hist_oracle(exp, alive))
+
+
+@pytest.mark.parametrize("n,k,seed", [(1, 0, 0), (3000, 0, 1),
+                                      (3000, 5000, 2), (257, 9000, 3)])
+def test_bucket_update_int64_and_unbounded_batch(n, k, seed):
+    """int64 counts stay int64 and exact; the min and histogram follow
+    the clamp contract (held against the reference on the clamped
+    values); an empty batch and a batch above the TPU kernel's
+    4096-entry cap both work."""
+    c, alive, idx, dec = _bucket_inputs(n, k, seed, wide=True)
+    new, mn, hist = ops.bucket_update(*(torch.as_tensor(x) for x in (
+        c, alive, idx, dec)))
+    keep = (idx >= 0) & (idx < n)
+    exp = c.copy()
+    np.subtract.at(exp, idx[keep], dec[keep])
+    assert new.dtype == torch.int64 and np.array_equal(new.numpy(), exp)
+    exp32 = np.minimum(exp, I32_MAX).astype(np.int32)
+    want_mn, want_hist = ref_ref.bucket_state_ref(jnp.asarray(exp32),
+                                                  jnp.asarray(alive))
+    assert int(mn) == int(want_mn)
+    assert np.array_equal(hist.numpy(), np.asarray(want_hist))
+    state = ops.bucket_state(new, torch.as_tensor(alive))
+    assert int(state[0]) == int(mn) and torch.equal(state[1], hist)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bucket_state_matches_reference(seed):
+    c, alive, _, _ = _bucket_inputs(2500, 0, seed)
+    mn, hist = ops.bucket_state(torch.as_tensor(c), torch.as_tensor(alive))
+    want_mn, want_hist = ref_ops.bucket_state(jnp.asarray(c),
+                                              jnp.asarray(alive))
+    assert int(mn) == int(want_mn)
+    assert np.array_equal(hist.numpy(), np.asarray(want_hist))
+
+
+def test_bucket_helpers_match_reference():
+    v = np.array([-7, 0, 1, 2, 3, 4, 1023, 1024, 1 << 30, I32_MAX], np.int32)
+    assert np.array_equal(ops.bit_length(torch.as_tensor(v)).numpy(),
+                          np.asarray(ref_bit_length(jnp.asarray(v))))
+    for k in (0, 1, 5, 30, 31, 32):
+        assert ops.bucket_upper_bound(k) == int(
+            ref_bucket_upper_bound(jnp.int32(k)))
+    rng = np.random.default_rng(4)
+    for _ in range(5):
+        h = (rng.random(32) < 0.2).astype(np.int32) * rng.integers(1, 9, 32)
+        assert int(ops.lowest_nonempty_bucket(torch.as_tensor(h))) == int(
+            ref_lowest_nonempty_bucket(jnp.asarray(h, jnp.int32)))
+    assert int(ops.lowest_nonempty_bucket(
+        torch.zeros(32, dtype=torch.int32))) == ops.NUM_BUCKETS
