@@ -15,7 +15,10 @@ Phases, each of which fails the run loudly:
   4. hold every counting kernel against its plain PyTorch version on the
      card, at the shapes the counting path gives it, bit for bit, and
      time both (and ``torch.bincount`` beside the histogram, as a
-     yardstick only);
+     yardstick only); the histogram's row times the int64 hash-slot keys
+     the path passes it, and the same keys narrowed to int32 (the keys
+     the row timed before the kernel took int64) are held bit for bit
+     and timed beside it, with its per-launch device times and its plan;
   5. drive the counting path, ``count_butterflies(g, mode="all",
      order="degree", count_dtype=torch.int64)``, through ``fused_cuda``,
      ``cuda`` with hash aggregation, and the plain ``fused`` engine, with
@@ -41,11 +44,20 @@ Phases, each of which fails the run loudly:
      ``tests/data/torch_peel_reference.json``;
   8. hold ``bucket_min`` and ``bucket_update`` against their plain
      versions on inputs the peeling path gave them (copies kept during
-     phase 7), time both and the ``torch.amin`` yardstick, and profile
-     one more tip call to set the device's busy time beside its wall
-     and host syncs;
+     phase 7), time both and the ``torch.amin`` yardstick, check that
+     ``bucket_update`` puts exactly one device operation on the stream
+     per call (no copy, memset or fill; 20 calls traced), and profile one more tip call to
+     set the device's busy time beside its wall and host syncs;
   9. print one ``{"kernels": [...]}`` line, the card line, and the final
      ``{"ok": true, "device": {...}}`` line.
+
+Every kernel row has ``ms`` (CUDA events around back-to-back calls,
+the host's pace when a call is short), ``device_ms`` (the kernel's own
+device time per call, summed over its launches, from ``torch.profiler``)
+and ``host_us`` (host microseconds per call to enqueue it, from a host
+clock around a run of calls with no synchronize inside; a wrapper that
+reads a result back, as ``fused_count_tiles`` reads its overflow flag,
+waits for the device there).
 
 Bounds use the H100 SXM's published rates: 3.35 TB/s of HBM bandwidth,
 and 16.7e12 int32 operations/s (64 INT32 lanes per SM x 132 SMs x
@@ -105,6 +117,15 @@ PEEL_PATH = (
     ("wings", "PEEL_WINGS_HOST", dict(engine="host"), "bucket_min"),
 )
 TAPPED = ("bucket_min", "bucket_update")
+# Names of each kernel's launches in the profiler's device rows.
+KERNEL_SYMBOLS = {
+    "fused_count_tiles": ("::insert_kernel", "::apply_kernel",
+                          "::clear_kernel"),
+    "wedge_histogram": ("::wedge_histogram_",),
+    "butterfly_combine": ("::butterfly_combine_kernel",),
+    "bucket_min": ("::bucket_min_kernel",),
+    "bucket_update": ("::bucket_update_kernel",),
+}
 
 
 T0 = time.perf_counter()
@@ -141,6 +162,52 @@ def time_ms(fn, warmup: int = 1, iters: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_rows(fn, calls: int) -> list:
+    """``(key, count, device us)`` of every device-side row (kernels,
+    copies, memsets) that ``torch.profiler`` records over ``calls``
+    calls of ``fn``, after one unprofiled warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and e.count > 0]
+
+
+def device_ms(fn, name: str, calls: int):
+    """Device ms per call of kernel ``name``'s own launches; None when
+    the trace shows none (not measured)."""
+    us = sum(t for key, _c, t in device_rows(fn, calls)
+             if any(sym in key for sym in KERNEL_SYMBOLS[name]))
+    return us / 1e3 / calls if us > 0 else None
+
+
+def host_us(fn, calls: int) -> float:
+    """Host microseconds per call to enqueue ``fn``: a host clock around
+    ``calls`` calls with no synchronize inside, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / calls
+
+
+def timings(name: str, fn, calls: int) -> dict:
+    """``host_us`` and ``device_ms`` of one kernel row (the host clock
+    first: launches right after a profiler session run slower)."""
+    host = host_us(fn, calls)
+    return dict(device_ms=device_ms(fn, name, calls), host_us=host)
 
 
 def bound(nbytes: float, ops: float) -> tuple:
@@ -212,6 +279,8 @@ def check_kernels(g, rg, ref, dev):
             torch.as_tensor(tb), *args[1:], **kw)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"W={W} tiles={plan.n_tiles} tile_cap={plan.chunk_cap}",
+        **timings("fused_count_tiles", lambda: ops.fused_count_tiles(
+            *args, tile_cap=plan.chunk_cap, **kw), 3),
     )
     print(f"kernel fused_count_tiles: bitwise equal to plain "
           f"({rows['fused_count_tiles']['shape']})", flush=True)
@@ -223,11 +292,14 @@ def check_kernels(g, rg, ref, dev):
     w = gather_wedges(dg, slot_wedge_counts(dg, "low"), w_cap, "low")
     bits = table_bits_for(w_cap)
     owner, slot, resolved = hash_resolve(w, bits)
-    keys = slot.to(torch.int32)
     live = w.valid & resolved
     B = 1 << bits
-    got = ops.wedge_histogram(keys, live, B)
-    want = plain.wedge_histogram_ref(keys, live, B)
+    # The row times the int64 slots the path passes (no narrowing copy).
+    # The rows before the kernel took int64 timed the slots narrowed to
+    # int32, and torch.bincount over those: both stay as a comparison.
+    keys = slot.to(torch.int32)
+    got = ops.wedge_histogram(slot, live, B)
+    want = plain.wedge_histogram_ref(slot, live, B)
     k_live = keys[live]
     lib = torch.bincount(k_live, minlength=B).to(torch.int32)
     torch.cuda.synchronize()
@@ -235,18 +307,31 @@ def check_kernels(g, rg, ref, dev):
     if err != 0 or not torch.equal(got, lib):
         fail(f"wedge_histogram differs from its plain version "
              f"(max |err| {err})")
+    if not torch.equal(ops.wedge_histogram(keys, live, B), want):
+        fail("wedge_histogram on int32 keys differs from its plain version")
     n_live = int(live.sum())
-    b_ms, b_by = bound(5 * keys.numel() + 4 * B, n_live)
+    # each int64 key and its valid byte read once, each bucket written once
+    b_ms, b_by = bound(9 * slot.numel() + 4 * B, n_live)
     rows["wedge_histogram"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: ops.wedge_histogram(keys, live, B)),
-        plain_ms=time_ms(lambda: plain.wedge_histogram_ref(keys, live, B)),
+        ms=time_ms(lambda: ops.wedge_histogram(slot, live, B)),
+        plain_ms=time_ms(lambda: plain.wedge_histogram_ref(slot, live, B)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(lambda: torch.bincount(k_live, minlength=B)),
-        shape=f"keys={keys.numel()} buckets={B}",
+        shape=f"keys={slot.numel()} (int64) buckets={B}",
+        **timings("wedge_histogram",
+                  lambda: ops.wedge_histogram(slot, live, B), 3),
     )
     print(f"kernel wedge_histogram: bitwise equal to plain "
           f"({rows['wedge_histogram']['shape']})", flush=True)
+    for key, count, us in sorted(device_rows(
+            lambda: ops.wedge_histogram(slot, live, B), 1), key=lambda r: -r[2]):
+        print(f"  {us / 1e3:10.4f} ms {count}x {key[:80]}", flush=True)
+    plan = ops.histogram_plan(
+        B, slot.numel(), torch.cuda.get_device_properties(dev).multi_processor_count)
+    print(f"kernel wedge_histogram: bitwise equal on the same keys narrowed "
+          f"to int32, {time_ms(lambda: ops.wedge_histogram(keys, live, B)):.4f}"
+          f" ms; plan {plan}", flush=True)
 
     counts = got
     gvalid = owner != np.iinfo(np.int32).max
@@ -271,6 +356,8 @@ def check_kernels(g, rg, ref, dev):
                      for c in calls),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"groups={counts.numel()} + wedges={d_w.numel()}",
+        **timings("butterfly_combine",
+                  lambda: [ops.butterfly_combine(*c) for c in calls], 3),
     )
     print(f"kernel butterfly_combine: bitwise equal to plain "
           f"({rows['butterfly_combine']['shape']})", flush=True)
@@ -478,12 +565,42 @@ def peel_kernel_rows(tap):
             plain_ms=time_ms(lambda: plain_fn(*args), iters=20),
             bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
             shape=f"{shape}; {len(samples)} path inputs checked",
+            **timings(name, lambda: fn(*args), 20),
         )
         print(f"kernel {name}: bitwise equal to plain on "
               f"{len(samples)} inputs from the peeling path "
               f"({rows[name]['shape']})", flush=True)
+        if name == "bucket_update":
+            one_operation(fn, args)
 
     return rows
+
+
+def one_operation(fn, args, calls: int = 20, tries: int = 3) -> None:
+    """Phase 8: ``bucket_update`` on path inputs must put exactly one
+    device operation on the stream per call, its own kernel: no copy,
+    memset or fill beside it. One trace holds ``calls`` calls, since a
+    trace of one call can lose its only device record
+    (``scripts/torch_profiler_probe.py`` counts how often). A device
+    operation of any other kind, or more launches than calls, fails at
+    once; a trace with fewer launches and nothing else (records dropped)
+    is taken again, up to ``tries`` traces in all."""
+    sym = KERNEL_SYMBOLS["bucket_update"][0]
+    for attempt in range(1, tries + 1):
+        rows = device_rows(lambda: fn(*args), calls)
+        print(f"bucket_update: device operations of {calls} calls "
+              f"(trace {attempt}): "
+              f"{[(key[:60], count) for key, count, _t in rows]}", flush=True)
+        other = [(key, count) for key, count, _t in rows if sym not in key]
+        launched = sum(count for key, count, _t in rows if sym in key)
+        if other or launched > calls:
+            fail(f"{calls} bucket_update calls put {launched} launches of "
+                 f"its kernel and {sum(c for _k, c in other)} other device "
+                 f"operations on the stream, not one kernel each")
+        if launched == calls:
+            return
+    fail(f"{tries} traces of {calls} bucket_update calls each showed fewer "
+         f"launches of its kernel than calls (last: {launched})")
 
 
 def profile_peel_window(g_tips, dev, lo: int = 2000, hi: int = 3000):
@@ -679,6 +796,7 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "device_ms": row["device_ms"], "host_us": row["host_us"],
             "shape": row["shape"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -22,12 +22,17 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 __all__ = [
     "MAX_TILE_CAP",
+    "HIST_PART_BITS",
+    "HIST_MAX_COARSE",
+    "HistogramPlan",
+    "histogram_plan",
     "build",
     "build_info",
     "wedge_histogram",
@@ -59,6 +64,17 @@ NVCC_FLAGS = (
 # representative). Above the cap the ladder descends to ``fused``.
 MAX_TILE_CAP = 1 << 26
 
+# wedge_histogram: S = 2^HIST_PART_BITS int32 bins of shared memory per
+# block (64 KiB; 2^14 measured faster than 2^13 and 2^15 at the hash
+# path's 2^28 buckets, see PERF.md). A table of at most S buckets is
+# counted in one launch of one block per SM; a larger one is split into
+# partitions of S buckets, in at most HIST_MAX_COARSE coarse groups (of
+# at most 2^31 / (S * HIST_MAX_COARSE) = 512 partitions, the kernel's
+# limit), and its keys are bucketed by coarse group, then by partition
+# (histogram_plan).
+HIST_PART_BITS = 14
+HIST_MAX_COARSE = 256
+
 _lock = threading.Lock()
 _lib = None
 build_info: dict = {}
@@ -67,14 +83,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "bf_wedge_histogram": (_P, _P, _L, _I, _P, _P),
+    "bf_wedge_histogram": (_P, _I, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "bf_butterfly_combine": (_P, _P, _P, _L, _P, _P, _P),
     "bf_fused_count_tiles": (
         _P, _I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
         _P, _P, _L, _P, _P, _P, _P, _P, _P,
     ),
     "bf_bucket_min": (_P, _I, _P, _L, _P, _P),
-    "bf_bucket_update": (_P, _I, _P, _L, _P, _P, _L, _P, _P, _P, _P),
+    "bf_bucket_update": (_P, _I, _P, _L, _P, _P, _L, _P, _P, _P),
 }
 
 
@@ -195,20 +211,88 @@ def _mask(valid: torch.Tensor) -> torch.Tensor:
     return v.contiguous()
 
 
+class HistogramPlan(NamedTuple):
+    """How ``wedge_histogram`` splits a table of ``num_buckets``.
+    ``regime`` "shared": one launch, one private table per block.
+    "partitioned": ``parts`` partitions of ``part_bins`` buckets (the
+    last holds ``last_bins``) in ``coarse`` groups of ``2^coarse_bits``;
+    ``blocks`` blocks count and scatter the keys. ``scratch_bytes`` is
+    what the wrapper allocates besides the output: 6 B per key (a
+    4-byte and a 2-byte copy) and ``offsets`` int64 entries."""
+
+    regime: str
+    parts: int
+    part_bins: int
+    last_bins: int
+    coarse: int
+    coarse_bits: int
+    blocks: int
+    offsets: int
+    scratch_bytes: int
+
+
+def histogram_plan(num_buckets: int, n_keys: int, sms: int) -> HistogramPlan:
+    """The regime, partitions and scratch of one ``wedge_histogram``
+    call over ``n_keys`` keys on a card with ``sms`` SMs (pure Python)."""
+    if not 0 < num_buckets < 2**31:
+        raise ValueError(f"num_buckets must be in [1, 2^31), got {num_buckets}")
+    bins = 1 << HIST_PART_BITS
+    sms = max(int(sms), 1)
+    if num_buckets <= bins:
+        return HistogramPlan("shared", 1, num_buckets, num_buckets, 1, 0,
+                             sms, 0, 0)
+    blocks = 2 * sms  # two key chunks per SM (the count pass runs both at once)
+    parts = -(-num_buckets // bins)
+    coarse_bits = 0
+    while parts > HIST_MAX_COARSE << coarse_bits:
+        coarse_bits += 1
+    coarse = -(-parts // (1 << coarse_bits))
+    offsets = blocks * coarse + coarse + 1 + parts + 1
+    return HistogramPlan(
+        "partitioned", parts, bins, num_buckets - (parts - 1) * bins, coarse,
+        coarse_bits, blocks, offsets, 6 * int(n_keys) + 8 * offsets,
+    )
+
+
+def _launch(lib, name: str, dev: torch.device, *args) -> None:
+    """Call ``bf_<name>`` on the current stream of ``dev``, entering the
+    device only when it is not already current; raise on a CUDA error."""
+    fn = getattr(lib, "bf_" + name)
+    if dev.index == torch.cuda.current_device():
+        code = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            code = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    _check(lib, code, name)
+
+
 def wedge_histogram(keys: torch.Tensor, valid: torch.Tensor,
                     num_buckets: int) -> torch.Tensor:
-    """int32 (num_buckets,) histogram of the valid in-range int32 keys."""
+    """int32 (num_buckets,) histogram of the valid int32 or int64 keys
+    in ``[0, num_buckets)``; keys of other integer types are widened."""
     lib = build()
     dev = keys.device
-    keys = keys.reshape(-1).to(torch.int32).contiguous()
+    keys = keys.reshape(-1)
+    if keys.dtype not in (torch.int32, torch.int64):
+        keys = keys.long()
+    keys = keys.contiguous()
     valid = _mask(valid)
     _require(valid, "valid", torch.bool, dev, keys.shape)
-    counts = torch.zeros(num_buckets, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        code = lib.bf_wedge_histogram(
-            _ptr(keys), _ptr(valid), keys.numel(), int(num_buckets),
-            _ptr(counts), torch.cuda.current_stream(dev).cuda_stream)
-    _check(lib, code, "wedge_histogram")
+    n = keys.numel()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = histogram_plan(int(num_buckets), n, sms)
+    if plan.regime == "shared":
+        counts = torch.zeros(num_buckets, dtype=torch.int32, device=dev)
+        offsets = wide = slots = counts[:0]
+    else:
+        counts = torch.empty(num_buckets, dtype=torch.int32, device=dev)
+        offsets = torch.empty(plan.offsets, dtype=torch.int64, device=dev)
+        wide = torch.empty(n, dtype=torch.int32, device=dev)
+        slots = torch.empty(n, dtype=torch.int16, device=dev)
+    _launch(lib, "wedge_histogram", dev, _ptr(keys),
+            int(keys.dtype == torch.int64), _ptr(valid), n, int(num_buckets),
+            HIST_PART_BITS, plan.coarse_bits, plan.blocks, _ptr(offsets),
+            _ptr(wide), _ptr(slots), _ptr(counts))
     return counts
 
 
@@ -224,11 +308,8 @@ def butterfly_combine(d: torch.Tensor, rep: torch.Tensor,
     _require(valid, "valid", torch.bool, dev, d.shape)
     dm1 = torch.empty_like(d)
     c2 = torch.empty(d.shape, dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        code = lib.bf_butterfly_combine(
-            _ptr(d), _ptr(rep), _ptr(valid), d.numel(), _ptr(dm1),
-            _ptr(c2), torch.cuda.current_stream(dev).cuda_stream)
-    _check(lib, code, "butterfly_combine")
+    _launch(lib, "butterfly_combine", dev, _ptr(d), _ptr(rep), _ptr(valid),
+            d.numel(), _ptr(dm1), _ptr(c2))
     return dm1, c2
 
 
@@ -280,17 +361,14 @@ def fused_count_tiles(
     vertex = torch.zeros(n_pad, dtype=torch.int64, device=dev)
     edge = torch.zeros(m, dtype=torch.int64, device=dev)
     overflow = torch.zeros(1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        code = lib.bf_fused_count_tiles(
+    _launch(lib, "fused_count_tiles", dev,
             batches.ctypes.data_as(ctypes.c_void_p), batches.shape[0],
             _ptr(offsets), _ptr(neighbors), _ptr(edge_src),
             _ptr(undirected_id), _ptr(w_off), e_pad, int(n_pad),
             int(direction == "high"), int(mode in ("global", "all")),
             int(mode in ("vertex", "all")), int(mode in ("edge", "all")),
             _ptr(table_keys), _ptr(table_counts), slots, _ptr(slot_of),
-            _ptr(total), _ptr(vertex), _ptr(edge), _ptr(overflow),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _check(lib, code, "fused_count_tiles")
+            _ptr(total), _ptr(vertex), _ptr(edge), _ptr(overflow))
     if int(overflow) != 0:
         raise RuntimeError(
             "fused_count_tiles: a hash probe walked the whole table; the "
@@ -322,12 +400,9 @@ def bucket_min(counts: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
     alive = _mask(alive)
     _require(alive, "alive", torch.bool, dev, counts.shape)
     out = torch.full((1,), _I32_MAX, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        code = lib.bf_bucket_min(
-            _ptr(counts), int(counts.dtype == torch.int64), _ptr(alive),
-            counts.numel(), _ptr(out),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _check(lib, code, "bucket_min")
+    _launch(lib, "bucket_min", dev, _ptr(counts),
+            int(counts.dtype == torch.int64), _ptr(alive), counts.numel(),
+            _ptr(out))
     return out[0]
 
 
@@ -335,8 +410,9 @@ def bucket_update(counts: torch.Tensor, alive: torch.Tensor,
                   idx: torch.Tensor, dec: torch.Tensor):
     """``(new_counts, min, hist)``: ``counts - scatter_add(idx, dec)``
     in the counts dtype (int32 or int64), its () int32 masked min and
-    its (32,) int32 bit-length occupancy over ``alive``. ``idx`` is cast
-    to int64 and ``dec`` to the counts dtype when they differ."""
+    its (32,) int32 bit-length occupancy over ``alive``, from one
+    cooperative launch that seeds its own outputs. ``idx`` is cast to
+    int64 and ``dec`` to the counts dtype when they differ."""
     lib = build()
     dev = counts.device
     counts = _counts(counts, "bucket_update")
@@ -347,12 +423,8 @@ def bucket_update(counts: torch.Tensor, alive: torch.Tensor,
     _require(idx, "idx", torch.int64, dev)
     _require(dec, "dec", counts.dtype, dev, idx.shape)
     new = torch.empty_like(counts)
-    mn = torch.full((1,), _I32_MAX, dtype=torch.int32, device=dev)
-    hist = torch.zeros(32, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        code = lib.bf_bucket_update(
-            _ptr(counts), int(counts.dtype == torch.int64), _ptr(alive),
-            counts.numel(), _ptr(idx), _ptr(dec), idx.numel(), _ptr(new),
-            _ptr(mn), _ptr(hist), torch.cuda.current_stream(dev).cuda_stream)
-    _check(lib, code, "bucket_update")
-    return new, mn[0], hist
+    out = torch.empty(33, dtype=torch.int32, device=dev)  # min, then 32 bins
+    _launch(lib, "bucket_update", dev, _ptr(counts),
+            int(counts.dtype == torch.int64), _ptr(alive), counts.numel(),
+            _ptr(idx), _ptr(dec), idx.numel(), _ptr(new), _ptr(out))
+    return new, out[0], out[1:]

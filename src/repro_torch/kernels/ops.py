@@ -21,6 +21,7 @@ __all__ = [
     "MAX_TILE_CAP",
     "build",
     "build_info",
+    "histogram_plan",
     "reset_launches",
     "wedge_histogram",
     "butterfly_combine",
@@ -43,6 +44,7 @@ bucket_upper_bound = _ref.bucket_upper_bound
 lowest_nonempty_bucket = _ref.lowest_nonempty_bucket
 build = _cuda.build
 build_info = _cuda.build_info
+histogram_plan = _cuda.histogram_plan
 
 LAUNCHES = {"wedge_histogram": 0, "butterfly_combine": 0,
             "fused_count_tiles": 0, "bucket_min": 0, "bucket_update": 0}

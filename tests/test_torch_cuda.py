@@ -23,6 +23,7 @@ from repro_torch.core.pipeline import (  # noqa: E402
 from repro_torch.core.ranking import make_order  # noqa: E402
 from repro_torch.core.wedges import device_graph, host_wedge_counts  # noqa: E402
 from repro_torch.data.graphs import powerlaw_bipartite  # noqa: E402
+from repro_torch.kernels import cuda as kcuda  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.testing import faults  # noqa: E402
 
@@ -53,6 +54,81 @@ def test_wedge_histogram_kernel_matches_plain(card):
     got = ops.wedge_histogram(keys, valid, buckets)
     assert ops.LAUNCHES["wedge_histogram"] == before + 1
     _equal([got], [ref.wedge_histogram_ref(keys, valid, buckets)])
+
+
+S = 1 << kcuda.HIST_PART_BITS  # the histogram's shared-memory bins per block
+
+
+def _dirty(card, n, dtype=torch.int32):
+    """Leave a freed block of ``n`` garbage entries in the caching
+    allocator, so an output the kernel fails to write shows."""
+    torch.full((n,), -7, dtype=dtype, device=card)
+
+
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("num_buckets", [1, S - 1, S, S + 1, 1 << 20,
+                                         256 * S + 1, 1 << 28])
+def test_wedge_histogram_regimes_match_plain(card, num_buckets, key_dtype):
+    """Both regimes (at most S buckets: shared; above: partitioned, with
+    one partition per coarse group up to 256 partitions and more above
+    it), with negative keys,
+    keys >= num_buckets and, for int64, keys >= 2^31 that an int32 cast
+    would wrap into range."""
+    rng = np.random.default_rng(num_buckets % 9973)
+    n = 400_000
+    keys = rng.integers(-50, num_buckets + 50, n)
+    if key_dtype == torch.int64:
+        keys[::97] = (1 << 32) + rng.integers(0, num_buckets, keys[::97].size)
+        keys[1::89] = rng.integers(1 << 31, 1 << 40, keys[1::89].size)
+    keys = torch.as_tensor(keys, dtype=key_dtype, device=card)
+    valid = torch.as_tensor(rng.random(n) < 0.7, device=card)
+    _dirty(card, num_buckets)
+    before = ops.LAUNCHES["wedge_histogram"]
+    got = ops.wedge_histogram(keys, valid, num_buckets)
+    assert ops.LAUNCHES["wedge_histogram"] == before + 1
+    _equal([got], [ref.wedge_histogram_ref(keys, valid, num_buckets)])
+
+
+@pytest.mark.parametrize("key_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("num_buckets", [S - 1, 1 << 20, 1 << 28])
+def test_wedge_histogram_skew_and_nothing_valid(card, num_buckets,
+                                                key_dtype):
+    rng = np.random.default_rng(11)
+    n = 300_000
+    part = min(5, (num_buckets - 1) // S)  # every key in one partition
+    keys = torch.as_tensor(part * S + rng.integers(0, min(S, num_buckets), n),
+                           dtype=key_dtype, device=card)
+    keys = torch.clamp(keys, max=num_buckets - 1)
+    valid = torch.ones(n, dtype=torch.bool, device=card)
+    for v in (valid, torch.zeros_like(valid), valid[:0]):
+        k = keys[: v.numel()]
+        _dirty(card, num_buckets)
+        _equal([ops.wedge_histogram(k, v, num_buckets)],
+               [ref.wedge_histogram_ref(k, v, num_buckets)])
+    _dirty(card, num_buckets)
+    assert not ops.wedge_histogram(keys, torch.zeros_like(valid),
+                                   num_buckets).any()
+
+
+@pytest.mark.parametrize("part_bits,coarse_bits,num_buckets,blocks", [
+    (16, 0, 1 << 20, 4),       # S = 2^16 bins: 256 KiB of shared memory
+    (1, 0, 100, 4),
+    (14, 10, 1 << 28, 4),      # F = 1024 partitions per coarse group
+    (14, 0, (1 << 23) + 1, 4),  # C = 513 coarse groups
+    (14, 6, 1 << 28, 0),
+])
+def test_wedge_histogram_entry_rejects_out_of_limits(card, part_bits,
+                                                     coarse_bits, num_buckets,
+                                                     blocks):
+    """The C entry checks the limits of its shared-memory tables itself,
+    so a plan that outgrows them is an error, not an overrun."""
+    lib = kcuda.build()
+    buf = torch.zeros(1 << 20, dtype=torch.int64, device=card)
+    p = kcuda._ptr(buf)
+    code = lib.bf_wedge_histogram(p, 1, p, 0, num_buckets, part_bits,
+                                  coarse_bits, blocks, p, p, p, p,
+                                  torch.cuda.current_stream(card).cuda_stream)
+    assert lib.bf_error_string(code).decode() == "invalid argument"
 
 
 def test_butterfly_combine_kernel_matches_plain(card):
@@ -186,6 +262,38 @@ def test_bucket_update_kernel_matches_plain(card, dtype, n, k):
     got = ops.bucket_update(*args)
     assert ops.LAUNCHES["bucket_update"] == before + 1
     _equal(got, ref.bucket_update_ref(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", ["nothing_alive", "empty_batch",
+                                  "all_out_of_range", "one_index",
+                                  "largest_batch"])
+def test_bucket_update_edge_cases_match_plain(card, dtype, case):
+    """One launch each, bit for bit; the kernel seeds its own min and
+    bins (the allocator hands it a dirty block) and leaves its input
+    unchanged."""
+    n = 45_000
+    k = {"empty_batch": 0, "one_index": 100_000,
+         "largest_batch": 3_145_728}.get(case, 5_000)
+    counts, alive, idx, dec = _bucket_inputs(card, n, k, dtype, 9)
+    if case == "nothing_alive":
+        alive = torch.zeros_like(alive)
+    elif case == "all_out_of_range":
+        idx = torch.as_tensor(
+            np.random.default_rng(9).choice([-5, -1, n, n + 7, 1 << 40], k),
+            dtype=torch.int64, device=card)
+    elif case == "one_index":
+        idx = torch.full((k,), 17, dtype=torch.int64, device=card)
+        dec = torch.remainder(dec, 1024)
+    kept = counts.clone()
+    _dirty(card, 33)
+    before = ops.LAUNCHES["bucket_update"]
+    got = ops.bucket_update(counts, alive, idx, dec)
+    assert ops.LAUNCHES["bucket_update"] == before + 1
+    _equal(got, ref.bucket_update_ref(counts, alive, idx, dec))
+    assert torch.equal(counts, kept)
+    if case == "nothing_alive":
+        assert int(got[1]) == 2**31 - 1 and not got[2].any()
 
 
 @pytest.mark.parametrize("decrease_key,kernel", [("bucket", "bucket_update"),

@@ -29,6 +29,7 @@ from repro.kernels.bucket_update import (  # noqa: E402
 from repro_torch.core.graph import RankedGraph  # noqa: E402
 from repro_torch.core.pipeline import fused_tile_inputs, plan_count  # noqa: E402
 from repro_torch.core.wedges import device_graph, host_wedge_counts  # noqa: E402
+from repro_torch.kernels import cuda as kcuda  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -55,6 +56,63 @@ def test_wedge_histogram_matches_pallas(n, buckets, seed):
     assert ops.LAUNCHES == before  # a CPU tensor launches no kernel
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_wedge_histogram_drops_wide_int64_keys():
+    """An int64 key at or above 2^31 is out of range, never wrapped into
+    it (2^32 + 3 would wrap to 3 through an int32 cast)."""
+    keys = torch.tensor([3, 2**32 + 3, 2**31, -(2**32) + 5, 5], dtype=torch.int64)
+    got = ops.wedge_histogram(keys, torch.ones(5, dtype=torch.bool), 8)
+    assert got.tolist() == [0, 0, 0, 1, 0, 1, 0, 0]
+
+
+S14 = 1 << 14  # kcuda.HIST_PART_BITS: the histogram's bins per block
+
+
+# (num_buckets, regime, parts, last_bins, coarse, coarse_bits, offsets,
+#  scratch bytes) for the hash path's 77,453,696 keys on a 132-SM card:
+# 264 count/scatter blocks, 6 B of scratch per key plus 8 B per offset.
+@pytest.mark.parametrize(
+    "num_buckets,regime,parts,last_bins,coarse,coarse_bits,offsets,scratch", [
+        (1, "shared", 1, 1, 1, 0, 0, 0),
+        (S14 - 1, "shared", 1, S14 - 1, 1, 0, 0, 0),
+        (S14, "shared", 1, S14, 1, 0, 0, 0),
+        (S14 + 1, "partitioned", 2, 1, 2, 0, 534, 464_726_448),
+        (1 << 20, "partitioned", 64, S14, 64, 0, 17_026, 464_858_384),
+        ((1 << 22) + 1, "partitioned", 257, 1, 129, 1, 34_444, 464_997_728),
+        (1 << 28, "partitioned", 16_384, S14, 256, 6, 84_226, 465_395_984),
+        (2**31 - 1, "partitioned", 131_072, S14 - 1, 256, 9, 198_914,
+         466_313_488),
+    ])
+def test_wedge_histogram_plan(num_buckets, regime, parts, last_bins, coarse,
+                              coarse_bits, offsets, scratch):
+    """The histogram's regime, partitions and scratch at S = 2^14 bins."""
+    plan = kcuda.histogram_plan(num_buckets, 77_453_696, 132)
+    assert plan == kcuda.HistogramPlan(
+        regime, parts, num_buckets if regime == "shared" else S14, last_bins,
+        coarse, coarse_bits, 132 if regime == "shared" else 264, offsets,
+        scratch)
+
+
+def test_wedge_histogram_plan_within_kernel_limits():
+    """Every plan stays inside the shared-memory tables that the C entry
+    checks (at most 512 coarse groups of at most 512 partitions) and
+    covers the table exactly, for every table size from 2^14 + 1 to
+    2^31 - 1."""
+    sizes = [(1 << b) + d for b in range(14, 31) for d in (-1, 0, 1)]
+    for num_buckets in sizes[1:] + [2**31 - 1]:
+        plan = kcuda.histogram_plan(num_buckets, 1000, 132)
+        fine = 1 << plan.coarse_bits
+        assert plan.coarse <= 512 and fine <= 512
+        assert (plan.coarse - 1) * fine < plan.parts <= plan.coarse * fine
+        assert (plan.parts - 1) * plan.part_bins + plan.last_bins == num_buckets
+        assert 0 < plan.last_bins <= plan.part_bins
+
+
+def test_wedge_histogram_plan_rejects_bad_sizes():
+    for bad in (-1, 0, 2**31):
+        with pytest.raises(ValueError, match="num_buckets"):
+            kcuda.histogram_plan(bad, 10, 132)
 
 
 @pytest.mark.parametrize("n,dmax,seed", [
