@@ -45,9 +45,9 @@ Phases, each of which fails the run loudly:
   8. hold ``bucket_min`` and ``bucket_update`` against their plain
      versions on inputs the peeling path gave them (copies kept during
      phase 7), time both and the ``torch.amin`` yardstick, check that
-     ``bucket_update`` puts exactly one device operation on the stream
-     per call (no copy, memset or fill; 20 calls traced), and profile one more tip call to
-     set the device's busy time beside its wall and host syncs;
+     each puts exactly one device operation on the stream per call (no
+     copy, memset or fill; 20 calls traced), and profile one more tip
+     call to set the device's busy time beside its wall and host syncs;
   9. print one ``{"kernels": [...]}`` line, the card line, and the final
      ``{"ok": true, "device": {...}}`` line.
 
@@ -55,9 +55,9 @@ Every kernel row has ``ms`` (CUDA events around back-to-back calls,
 the host's pace when a call is short), ``device_ms`` (the kernel's own
 device time per call, summed over its launches, from ``torch.profiler``)
 and ``host_us`` (host microseconds per call to enqueue it, from a host
-clock around a run of calls with no synchronize inside; a wrapper that
-reads a result back, as ``fused_count_tiles`` reads its overflow flag,
-waits for the device there).
+clock around a run of calls with no synchronize inside; no wrapper
+reads a result back). ``fused_count_tiles`` is timed with its host work
+list planned beforehand, as the counting path plans it.
 
 Bounds use the H100 SXM's published rates: 3.35 TB/s of HBM bandwidth,
 and 16.7e12 int32 operations/s (64 INT32 lanes per SM x 132 SMs x
@@ -119,8 +119,7 @@ PEEL_PATH = (
 TAPPED = ("bucket_min", "bucket_update")
 # Names of each kernel's launches in the profiler's device rows.
 KERNEL_SYMBOLS = {
-    "fused_count_tiles": ("::insert_kernel", "::apply_kernel",
-                          "::clear_kernel"),
+    "fused_count_tiles": ("::fused_light_kernel", "::fused_heavy_kernel"),
     "wedge_histogram": ("::wedge_histogram_",),
     "butterfly_combine": ("::butterfly_combine_kernel",),
     "bucket_min": ("::bucket_min_kernel",),
@@ -239,7 +238,7 @@ def check_kernels(g, rg, ref, dev):
     """Phase 4: each kernel against its plain version at the main path's
     shapes. Returns {name: row} without ``launches``."""
     from repro_torch.core.aggregate import hash_resolve, table_bits_for
-    from repro_torch.core.pipeline import fused_tile_inputs, plan_count
+    from repro_torch.core.pipeline import fused_host_inputs, plan_count
     from repro_torch.core.wedges import (
         auto_chunk_budget, device_graph, gather_wedges, host_wedge_counts,
         slot_wedge_counts,
@@ -255,11 +254,20 @@ def check_kernels(g, rg, ref, dev):
     plan = plan_count(rg, mode="all", aggregation="sort",
                       budget=auto_chunk_budget(dev), dtype="int64",
                       engine="fused_cuda", wv_slots=wv_slots)
-    tb, w_off = fused_tile_inputs(plan, rg.offsets, wv_slots, dev)
+    tb, w_off_h = fused_host_inputs(plan, rg.offsets, wv_slots)
+    t0 = time.perf_counter()
+    work = ops.fused_work(tb, rg.offsets, w_off_h, dev)
+    plan_s = time.perf_counter() - t0
+    w_off = torch.as_tensor(w_off_h, device=dev)
     args = (tb, dg.offsets, dg.neighbors, dg.edge_src, dg.undirected_id,
             w_off)
     kw = dict(n_pad=dg.n_pad, m=dg.m, direction="low", mode="all")
-    got = ops.fused_count_tiles(*args, tile_cap=plan.chunk_cap, **kw)
+
+    def fused():
+        return ops.fused_count_tiles(*args, tile_cap=plan.chunk_cap,
+                                     work=work, **kw)
+
+    got = fused()
     want = plain.fused_count_tiles_ref(torch.as_tensor(tb), *args[1:], **kw)
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
@@ -269,21 +277,26 @@ def check_kernels(g, rg, ref, dev):
     e_pad = dg.e_pad
     nbytes = (4 * (dg.n_pad + 1) + 3 * 4 * e_pad + 8 * (e_pad + 1)
               + 16 * tb.shape[0] + 8 * (1 + dg.n_pad + dg.m))
-    ops_n = W * int(np.ceil(np.log2(e_pad + 1)))
-    b_ms, b_by = bound(nbytes, ops_n)
+    # one grouping update per wedge is the work the inputs need
+    b_ms, b_by = bound(nbytes, W)
     rows["fused_count_tiles"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: ops.fused_count_tiles(
-            *args, tile_cap=plan.chunk_cap, **kw)),
+        ms=time_ms(fused),
         plain_ms=time_ms(lambda: plain.fused_count_tiles_ref(
             torch.as_tensor(tb), *args[1:], **kw)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"W={W} tiles={plan.n_tiles} tile_cap={plan.chunk_cap}",
-        **timings("fused_count_tiles", lambda: ops.fused_count_tiles(
-            *args, tile_cap=plan.chunk_cap, **kw), 3),
+        shape=(f"W={W} tiles={plan.n_tiles} tile_cap={plan.chunk_cap}; "
+               f"light batches {work.light.shape[0]}, heavy chunks "
+               f"{work.heavy.shape[0]} in {work.rounds.shape[0] - 1} rounds "
+               f"of {work.in_flight} in flight"),
+        **timings("fused_count_tiles", fused, 3),
     )
     print(f"kernel fused_count_tiles: bitwise equal to plain "
-          f"({rows['fused_count_tiles']['shape']})", flush=True)
+          f"({rows['fused_count_tiles']['shape']}; host work list "
+          f"{plan_s * 1e3:.1f} ms, {work.table.nbytes} B, scratch "
+          f"{work.scratch_bytes} B)", flush=True)
+    for key, count, us in sorted(device_rows(fused, 1), key=lambda r: -r[2]):
+        print(f"  {us / 1e3:10.4f} ms {count}x {key[:80]}", flush=True)
     del got, want
 
     # wedge_histogram and butterfly_combine at the cuda+hash rung's
@@ -570,36 +583,35 @@ def peel_kernel_rows(tap):
         print(f"kernel {name}: bitwise equal to plain on "
               f"{len(samples)} inputs from the peeling path "
               f"({rows[name]['shape']})", flush=True)
-        if name == "bucket_update":
-            one_operation(fn, args)
+        one_operation(name, fn, args)
 
     return rows
 
 
-def one_operation(fn, args, calls: int = 20, tries: int = 3) -> None:
-    """Phase 8: ``bucket_update`` on path inputs must put exactly one
-    device operation on the stream per call, its own kernel: no copy,
-    memset or fill beside it. One trace holds ``calls`` calls, since a
-    trace of one call can lose its only device record
-    (``scripts/torch_profiler_probe.py`` counts how often). A device
-    operation of any other kind, or more launches than calls, fails at
-    once; a trace with fewer launches and nothing else (records dropped)
-    is taken again, up to ``tries`` traces in all."""
-    sym = KERNEL_SYMBOLS["bucket_update"][0]
+def one_operation(name, fn, args, calls: int = 20, tries: int = 3) -> None:
+    """Phase 8: ``bucket_min`` and ``bucket_update`` on path inputs must
+    each put exactly one device operation on the stream per call, their
+    own kernel: no copy, memset or fill beside it. One trace holds
+    ``calls`` calls, since a trace of one call can lose its only device
+    record (``scripts/torch_profiler_probe.py`` counts how often). A
+    device operation of any other kind, or more launches than calls,
+    fails at once; a trace with fewer launches and nothing else (records
+    dropped) is taken again, up to ``tries`` traces in all."""
+    sym = KERNEL_SYMBOLS[name][0]
     for attempt in range(1, tries + 1):
         rows = device_rows(lambda: fn(*args), calls)
-        print(f"bucket_update: device operations of {calls} calls "
+        print(f"{name}: device operations of {calls} calls "
               f"(trace {attempt}): "
               f"{[(key[:60], count) for key, count, _t in rows]}", flush=True)
         other = [(key, count) for key, count, _t in rows if sym not in key]
         launched = sum(count for key, count, _t in rows if sym in key)
         if other or launched > calls:
-            fail(f"{calls} bucket_update calls put {launched} launches of "
-                 f"its kernel and {sum(c for _k, c in other)} other device "
+            fail(f"{calls} {name} calls put {launched} launches of its "
+                 f"kernel and {sum(c for _k, c in other)} other device "
                  f"operations on the stream, not one kernel each")
         if launched == calls:
             return
-    fail(f"{tries} traces of {calls} bucket_update calls each showed fewer "
+    fail(f"{tries} traces of {calls} {name} calls each showed fewer "
          f"launches of its kernel than calls (last: {launched})")
 
 

@@ -80,6 +80,7 @@ __all__ = [
     "zero_counts",
     "count_tile_step",
     "run_count_tiles",
+    "fused_host_inputs",
     "fused_tile_inputs",
     "run_fused_cuda_tiles",
     "execute_count_plan",
@@ -672,16 +673,23 @@ def run_count_tiles(
     return out
 
 
-def fused_tile_inputs(plan: WedgePlan, rg_offsets: np.ndarray,
-                      wv_slots: np.ndarray, device):
-    """The fused kernel's plan-derived inputs: the tiles' flat wedge
-    ranges ``[ws, we)`` as an (n_tiles, 2) int64 host array, and the
-    int64 wedge prefix ``w_off`` (e_pad + 1,) on ``device``."""
+def fused_host_inputs(plan: WedgePlan, rg_offsets: np.ndarray,
+                      wv_slots: np.ndarray):
+    """The fused kernel's plan-derived host inputs: the tiles' flat
+    wedge ranges ``[ws, we)`` as an (n_tiles, 2) int64 array, and the
+    int64 wedge prefix ``w_off`` (e_pad + 1,)."""
     bounds = np.asarray(plan.bounds, np.int64)
     w_off = np.concatenate([[0], np.cumsum(wv_slots)]).astype(np.int64)
     off = rg_offsets.astype(np.int64)
     tb = np.stack([w_off[off[bounds[:-1]]], w_off[off[bounds[1:]]]], axis=1)
-    return tb.reshape(-1, 2), torch.as_tensor(w_off, device=device)
+    return tb.reshape(-1, 2), w_off
+
+
+def fused_tile_inputs(plan: WedgePlan, rg_offsets: np.ndarray,
+                      wv_slots: np.ndarray, device):
+    """:func:`fused_host_inputs` with ``w_off`` on ``device``."""
+    tb, w_off = fused_host_inputs(plan, rg_offsets, wv_slots)
+    return tb, torch.as_tensor(w_off, device=device)
 
 
 def run_fused_cuda_tiles(
@@ -691,15 +699,15 @@ def run_fused_cuda_tiles(
     wv_slots: np.ndarray,
 ):
     """Dispatch the fused counting kernel over a plan's tiles:
-    host-planned vertex-aligned tile bounds in flat wedge-id space, one
-    call of ``kernels/ops.fused_count_tiles``. The kernel accumulates
-    exact int64 counts; a 32-bit plan dtype keeps the low word, like
-    every engine.
+    host-planned vertex-aligned tile bounds in flat wedge-id space and
+    the kernel's host work list (``kernels/ops.fused_work``), one call
+    of ``kernels/ops.fused_count_tiles``. The kernel accumulates exact
+    int64 counts; a 32-bit plan dtype keeps the low word, like every
+    engine.
 
-    The kernel's hash-table scratch is sized for ``plan.chunk_cap``
-    wedges; a plan whose largest tile exceeds the kernel's
-    ``MAX_TILE_CAP`` raises :class:`CapacityOverflow`, so the ladder
-    descends to ``fused``."""
+    A plan whose largest tile exceeds the kernel's ``MAX_TILE_CAP``
+    raises :class:`CapacityOverflow`, so the ladder descends to
+    ``fused``."""
     dtype = plan.accumulator.torch_dtype()
     mode = plan.accumulator.mode
     max_tile = _faults.capacity_override(
@@ -708,23 +716,25 @@ def run_fused_cuda_tiles(
     if plan.chunk_cap > max_tile:
         raise _res.CapacityOverflow(
             f"engine='fused_cuda' tile_cap {plan.chunk_cap} exceeds the "
-            f"kernel's scratch bound {max_tile} (a single vertex owns "
-            "more wedges than the kernel's hash table can hold); use "
+            f"kernel's bound {max_tile} (a single vertex owns more "
+            "wedges than the kernel takes in one tile); use "
             "engine='fused'"
         )
-    tb, w_off = fused_tile_inputs(plan, rg_offsets, wv_slots, dg.device)
+    tb, w_off_h = fused_host_inputs(plan, rg_offsets, wv_slots)
+    work = _kops.fused_work(tb, rg_offsets, w_off_h, dg.device)
     tot, vert, edge = _kops.fused_count_tiles(
         tb,
         dg.offsets,
         dg.neighbors,
         dg.edge_src,
         dg.undirected_id,
-        w_off,
+        torch.as_tensor(w_off_h, device=dg.device),
         tile_cap=plan.chunk_cap,
         n_pad=dg.n_pad,
         m=dg.m,
         direction=plan.direction,
         mode=mode,
+        work=work,
     )
     total, vert, edge = tot.to(dtype), vert.to(dtype), edge.to(dtype)
     if mode == "global":

@@ -29,10 +29,17 @@ import torch
 
 __all__ = [
     "MAX_TILE_CAP",
+    "FUSED_LIGHT_SLOTS",
+    "FUSED_LIGHT_CAP",
+    "FUSED_L2_BYTES",
+    "FUSED_MAX_IN_FLIGHT",
     "HIST_PART_BITS",
     "HIST_MAX_COARSE",
     "HistogramPlan",
     "histogram_plan",
+    "FusedWork",
+    "fused_work",
+    "upload_work",
     "build",
     "build_info",
     "wedge_histogram",
@@ -57,12 +64,33 @@ NVCC_FLAGS = (
     "-v",
 )
 
-# Largest tile (in wedges) the fused kernel takes. Its scratch is a hash
-# table of the next power of two >= 2 x tile_cap slots (8 B key + 4 B
-# count) plus 4 B per wedge: 2^26 wedges need 1.75 GiB, and the slot
-# index must stay below 2^31 (its top bit marks the group's
-# representative). Above the cap the ladder descends to ``fused``.
+# Largest tile (in wedges) the fused kernel takes. Its scratch no longer
+# grows with the tile: light segments (one vertex's wedges in one tile)
+# are grouped in shared memory, heavy ones in at most FUSED_L2_BYTES of
+# dense per-vertex counters (see fused_work). A segment must stay below
+# 2^32 wedges for the counters' 32-bit halves, which every tile under
+# this cap is. The value stays 2^26 so that no plan, and no descent of
+# the ladder to ``fused``, changes.
 MAX_TILE_CAP = 1 << 26
+
+# fused_count_tiles: a light block's shared-memory hash table holds
+# FUSED_LIGHT_SLOTS 4-byte keys and 4-byte counts (224 KiB of the 227 KB
+# a block may take); a segment owns 2 slots per wedge, so segments of at
+# most FUSED_LIGHT_CAP wedges are light and a light batch holds at most
+# that many. On the smoke graph (low) this leaves 611 heavy vertices
+# carrying 88% of the wedges. A heavy segment's dense counter can touch
+# at most one 32-byte sector per wedge and no more than its 8 B x n_pad
+# array; the counters in flight in one round may reach at most
+# FUSED_L2_BYTES that way (about half of the H100's 50 MB L2), and at
+# most FUSED_MAX_IN_FLIGHT of them, the counter buffers allocated.
+FUSED_LIGHT_SLOTS = 28_672
+FUSED_LIGHT_CAP = FUSED_LIGHT_SLOTS // 2
+FUSED_L2_BYTES = 24 << 20
+FUSED_MAX_IN_FLIGHT = 16
+FUSED_SECTOR = 32
+FUSED_CHUNK_MIN = 256    # one wedge per thread of a heavy block
+FUSED_CHUNK_MAX = 4096
+FUSED_BLOCKS_PER_SM = 8  # the heavy kernel's resident blocks
 
 # wedge_histogram: S = 2^HIST_PART_BITS int32 bins of shared memory per
 # block (64 KiB; 2^14 measured faster than 2^13 and 2^15 at the hash
@@ -86,10 +114,10 @@ _SIGNATURES = {
     "bf_wedge_histogram": (_P, _I, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "bf_butterfly_combine": (_P, _P, _P, _L, _P, _P, _P),
     "bf_fused_count_tiles": (
-        _P, _I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
-        _P, _P, _L, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+        _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P,
     ),
-    "bf_bucket_min": (_P, _I, _P, _L, _P, _P),
+    "bf_bucket_min": (_P, _I, _P, _L, _P, _I, _P, _P),
     "bf_bucket_update": (_P, _I, _P, _L, _P, _P, _L, _P, _P, _P),
 }
 
@@ -205,6 +233,8 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype,
 
 def _mask(valid: torch.Tensor) -> torch.Tensor:
     """A bool (stored as one byte per entry) contiguous mask."""
+    if valid.dtype == torch.bool and valid.is_contiguous():
+        return valid.view(-1)
     v = valid.reshape(-1)
     if v.dtype != torch.bool:
         v = v > 0
@@ -313,18 +343,143 @@ def butterfly_combine(d: torch.Tensor, rep: torch.Tensor,
     return dm1, c2
 
 
-def _batches(tile_bounds: np.ndarray, cap: int) -> np.ndarray:
-    """Merge adjacent non-empty tiles into passes of at most ``cap``
-    wedges (groups never span a tile, so they never span a pass)."""
-    out: list = []
+class FusedWork(NamedTuple):
+    """The fused kernel's work list, from :func:`fused_work`. ``light``
+    (n_batches, 4) rows ``(t0, t1, e_lo, e_hi)``: one block's flat wedge
+    range and the slot range whose wedge prefix covers it. ``heavy``
+    (n_chunks, 5) rows ``(t0, t1, e_lo, e_hi, buffer)``, grouped by round
+    through ``rounds`` (n_rounds + 1,) chunk offsets. All three are views
+    of ``table``, the one int64 array the kernel reads; ``device`` is
+    its copy on the card once :func:`upload_work` made it.
+    ``in_flight`` counter buffers of ``n_pad`` uint64 (``scratch_bytes``)
+    serve one round's heavy segments."""
+
+    table: np.ndarray
+    light: np.ndarray
+    heavy: np.ndarray
+    rounds: np.ndarray
+    in_flight: int
+    scratch_bytes: int
+    device: "torch.Tensor | None" = None
+
+
+def _segments(tile_bounds: np.ndarray, vstart: np.ndarray):
+    """``(start, end)`` of each vertex's wedges inside each tile, per
+    tile in order, empty ones dropped."""
+    out = []
     for ws, we in tile_bounds.tolist():
         if we <= ws:
             continue
-        if out and out[-1][1] == ws and we - out[-1][0] <= cap:
-            out[-1][1] = we
-        else:
-            out.append([ws, we])
-    return np.ascontiguousarray(np.asarray(out, np.int64).reshape(-1, 2))
+        lo = int(np.searchsorted(vstart, ws, side="right")) - 1
+        hi = int(np.searchsorted(vstart, we, side="left"))
+        s = np.maximum(vstart[lo:hi], ws)
+        e = np.minimum(vstart[lo + 1:hi + 1], we)
+        keep = e > s
+        out.append((s[keep], e[keep]))
+    return out
+
+
+def _light_batches(s: np.ndarray, e: np.ndarray, cap: int) -> list:
+    """Greedy packing of one tile's segments: consecutive light segments
+    (at most ``cap`` wedges, not split by a heavy one) into batches of at
+    most ``cap`` wedges."""
+    heavy = (e - s) > cap
+    light = np.flatnonzero(~heavy)
+    ls, le = s[light], e[light]
+    run = np.cumsum(heavy)[light]  # heavy segments before: one run each
+    out = []
+    i, n = 0, light.size
+    while i < n:
+        j = int(np.searchsorted(le, ls[i] + cap, side="right"))
+        j = max(i + 1, min(j, int(np.searchsorted(run, run[i], side="right"))))
+        out.append((int(ls[i]), int(le[j - 1])))
+        i = j
+    return out
+
+
+def fused_work(tile_bounds: np.ndarray, offsets: np.ndarray,
+               w_off: np.ndarray, sms: int) -> FusedWork:
+    """The fused kernel's work list for tiles ``[ws, we)`` of flat wedge
+    ids (pure numpy, host arrays only): ``offsets`` the (n_pad + 1,) CSR
+    offsets, ``w_off`` the (e_pad + 1,) wedge prefix, ``sms`` the card's
+    SM count.
+
+    A segment is one vertex's wedges inside one tile. Segments of at most
+    ``FUSED_LIGHT_CAP`` wedges are light: consecutive ones are packed
+    into batches of at most that many wedges, one block each. Heavier
+    ones go, largest first, in rounds: a round takes segments while the
+    sectors their counters can touch, ``min(8 x n_pad, FUSED_SECTOR x
+    wedges)`` bytes each, stay within ``FUSED_L2_BYTES`` and there are
+    at most ``FUSED_MAX_IN_FLIGHT`` of them (a lone segment always
+    fits). Each segment is cut into chunks of ``ceil(round wedges /
+    (FUSED_BLOCKS_PER_SM x sms))`` wedges, clipped to [FUSED_CHUNK_MIN,
+    FUSED_CHUNK_MAX]. Every wedge of every tile is in exactly one batch
+    or chunk."""
+    tb = np.asarray(tile_bounds, np.int64).reshape(-1, 2)
+    w_off = np.asarray(w_off, np.int64)
+    n_pad = int(np.asarray(offsets).shape[0]) - 1
+    total = int(w_off[-1])
+    if tb.size and (int(tb.min()) < 0 or int(tb.max()) > total):
+        raise ValueError(f"tile bounds must lie in [0, {total}]")
+    vstart = w_off[np.asarray(offsets, np.int64)]
+    light, heavy = [], []
+    cap = FUSED_LIGHT_CAP
+    for s, e in _segments(tb, vstart):
+        light += _light_batches(s, e, cap)
+        big = (e - s) > cap
+        heavy += zip(s[big].tolist(), e[big].tolist())
+    heavy.sort(key=lambda se: se[0] - se[1])  # largest first (stable)
+    groups, used = [], 0
+    for s, e in heavy:
+        reach = min(8 * n_pad, FUSED_SECTOR * (e - s))
+        if not groups or (groups[-1] and (
+                used + reach > FUSED_L2_BYTES
+                or len(groups[-1]) == FUSED_MAX_IN_FLIGHT)):
+            groups.append([])
+            used = 0
+        groups[-1].append((s, e))
+        used += reach
+    k = max((len(segs) for segs in groups), default=0)
+    chunks, rounds = [], [0]
+    for segs in groups:
+        width = -(-sum(e - s for s, e in segs) // (FUSED_BLOCKS_PER_SM * sms))
+        width = min(max(width, FUSED_CHUNK_MIN), FUSED_CHUNK_MAX)
+        for buf, (s, e) in enumerate(segs):
+            starts = np.arange(s, e, width, dtype=np.int64)
+            chunks.append(np.stack([starts, np.minimum(starts + width, e),
+                                    np.full_like(starts, buf)], axis=1))
+        rounds.append(rounds[-1] + sum(-(-(e - s) // width) for s, e in segs))
+    lt = np.asarray(light, np.int64).reshape(-1, 2)
+    hv = (np.concatenate(chunks) if chunks
+          else np.zeros((0, 3), np.int64))
+
+    def with_slots(rows):  # (t0, t1) -> (t0, t1, e_lo, e_hi)
+        e_lo = np.searchsorted(w_off, rows[:, 0], side="right") - 1
+        e_hi = np.searchsorted(w_off, rows[:, 1] - 1, side="right")
+        return np.stack([rows[:, 0], rows[:, 1], e_lo, e_hi], axis=1)
+
+    table = np.concatenate([
+        with_slots(lt).ravel(),
+        np.concatenate([with_slots(hv[:, :2]), hv[:, 2:]], axis=1).ravel(),
+        np.asarray(rounds, np.int64),
+    ]).astype(np.int64)
+    n_l, n_h = 4 * lt.shape[0], 5 * hv.shape[0]
+    return FusedWork(
+        table, table[:n_l].reshape(-1, 4), table[n_l:n_l + n_h].reshape(-1, 5),
+        table[n_l + n_h:], k, 8 * k * n_pad,
+    )
+
+
+def upload_work(work: FusedWork, dev: torch.device) -> FusedWork:
+    """``work`` with its table on ``dev``: copied from pinned host
+    memory without blocking the host; the light batches are checked
+    against the kernel's shared-memory table first."""
+    light = work.light
+    if light.size and int((light[:, 1] - light[:, 0]).max()) > FUSED_LIGHT_CAP:
+        raise ValueError("fused_count_tiles: a light batch is wider than "
+                         f"{FUSED_LIGHT_CAP} wedges")
+    pinned = torch.from_numpy(work.table).pin_memory()
+    return work._replace(device=pinned.to(dev, non_blocking=True))
 
 
 def fused_count_tiles(
@@ -335,14 +490,18 @@ def fused_count_tiles(
     undirected_id: torch.Tensor,
     w_off: torch.Tensor,
     *,
-    tile_cap: int,
     n_pad: int,
     m: int,
     direction: str,
     mode: str,
+    work: "FusedWork | None" = None,
 ):
     """Exact int64 ``(total (), vertex (n_pad,), edge (m,))`` over the
-    host tile bounds; tiles must hold at most ``tile_cap`` wedges."""
+    host tile bounds. ``work`` is :func:`fused_work` of the same tiles
+    and graph, best already on the card (:func:`upload_work`); without
+    it the wrapper plans from host copies of ``offsets`` and ``w_off``
+    (a device-to-host fetch). The call only enqueues: nothing is read
+    back."""
     lib = build()
     dev = neighbors.device
     e_pad = int(neighbors.shape[0])
@@ -351,33 +510,37 @@ def fused_count_tiles(
     _require(edge_src, "edge_src", torch.int32, dev, (e_pad,))
     _require(undirected_id, "undirected_id", torch.int32, dev, (e_pad,))
     _require(w_off, "w_off", torch.int64, dev, (e_pad + 1,))
-    cap = max(int(tile_cap), 1)
-    slots = 1 << (2 * cap - 1).bit_length()  # power of two >= 2 * cap
-    batches = _batches(tile_bounds, cap)
-    table_keys = torch.full((slots,), -1, dtype=torch.int64, device=dev)
-    table_counts = torch.zeros(slots, dtype=torch.int32, device=dev)
-    slot_of = torch.empty(cap, dtype=torch.int32, device=dev)
-    total = torch.zeros(1, dtype=torch.int64, device=dev)
-    vertex = torch.zeros(n_pad, dtype=torch.int64, device=dev)
-    edge = torch.zeros(m, dtype=torch.int64, device=dev)
-    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+    if work is None:
+        work = fused_work(tile_bounds, offsets.cpu().numpy(),
+                          w_off.cpu().numpy(),
+                          torch.cuda.get_device_properties(dev)
+                          .multi_processor_count)
+    if work.device is None or work.device.device != dev:
+        work = upload_work(work, dev)
+    # one zeroed buffer: vertex, edge (from an even entry, so 16-byte
+    # aligned), then total
+    at_edge = n_pad + (n_pad & 1)
+    out = torch.zeros(at_edge + m + 1, dtype=torch.int64, device=dev)
+    vertex, edge, total = out[:n_pad], out[at_edge:at_edge + m], out[-1]
+    n_light = work.light.shape[0]
+    n_rounds = work.rounds.shape[0] - 1
+    if not n_light and not n_rounds:
+        return total, vertex, edge
+    heavy_at = work.device.data_ptr() + 8 * work.light.size
+    rounds_at = heavy_at + 8 * work.heavy.size
+    counters = torch.zeros(max(work.in_flight * n_pad, 1), dtype=torch.int64,
+                           device=dev)
     _launch(lib, "fused_count_tiles", dev,
-            batches.ctypes.data_as(ctypes.c_void_p), batches.shape[0],
             _ptr(offsets), _ptr(neighbors), _ptr(edge_src),
             _ptr(undirected_id), _ptr(w_off), e_pad, int(n_pad),
             int(direction == "high"), int(mode in ("global", "all")),
             int(mode in ("vertex", "all")), int(mode in ("edge", "all")),
-            _ptr(table_keys), _ptr(table_counts), slots, _ptr(slot_of),
-            _ptr(total), _ptr(vertex), _ptr(edge), _ptr(overflow))
-    if int(overflow) != 0:
-        raise RuntimeError(
-            "fused_count_tiles: a hash probe walked the whole table; the "
-            "scratch was sized below 2 x the largest pass"
-        )
-    return total[0], vertex, edge
+            FUSED_LIGHT_SLOTS, _ptr(work.device), n_light, heavy_at,
+            rounds_at, n_rounds, _ptr(counters),
+            _ptr(total), _ptr(vertex), _ptr(edge))
+    return total, vertex, edge
 
 
-_I32_MAX = 2**31 - 1
 _COUNT_DTYPES = (torch.int32, torch.int64)
 
 
@@ -391,19 +554,36 @@ def _counts(counts: torch.Tensor, name: str) -> torch.Tensor:
     return counts
 
 
+_min_scratch: dict = {}
+
+
+def _bucket_min_scratch(dev: torch.device) -> torch.Tensor:
+    """Per-device scratch of ``bucket_min``: one int32 partial minimum
+    per block (at most one block per SM) and the last-block ticket,
+    zeroed once; the kernel leaves the ticket at 0 after every call."""
+    buf = _min_scratch.get(dev.index)
+    if buf is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        buf = torch.zeros(sms + 1, dtype=torch.int32, device=dev)
+        _min_scratch[dev.index] = buf
+    return buf
+
+
 def bucket_min(counts: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
     """() int32 masked min of int32/int64 ``counts`` (clamped to
-    INT32_MAX) over ``alive``; INT32_MAX when nothing is alive."""
+    INT32_MAX) over ``alive``; INT32_MAX when nothing is alive. One
+    launch, which writes the output itself."""
     lib = build()
     dev = counts.device
     counts = _counts(counts, "bucket_min")
     alive = _mask(alive)
     _require(alive, "alive", torch.bool, dev, counts.shape)
-    out = torch.full((1,), _I32_MAX, dtype=torch.int32, device=dev)
+    scratch = _bucket_min_scratch(dev)
+    out = torch.empty((), dtype=torch.int32, device=dev)
     _launch(lib, "bucket_min", dev, _ptr(counts),
             int(counts.dtype == torch.int64), _ptr(alive), counts.numel(),
-            _ptr(out))
-    return out[0]
+            _ptr(scratch), scratch.shape[0] - 1, _ptr(out))
+    return out
 
 
 def bucket_update(counts: torch.Tensor, alive: torch.Tensor,

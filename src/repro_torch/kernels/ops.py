@@ -26,6 +26,7 @@ __all__ = [
     "wedge_histogram",
     "butterfly_combine",
     "fused_count_tiles",
+    "fused_work",
     "bucket_min",
     "bucket_state",
     "bucket_update",
@@ -137,13 +138,16 @@ def fused_count_tiles(
     m: int,
     direction: str = "low",
     mode: str = "all",
+    work=None,
 ):
     """Zero-materialization fused counting over vertex-aligned wedge
     tiles (the ``fused_cuda`` engine). ``tile_bounds`` is an (n_tiles, 2)
     host array or tensor of flat wedge ranges ``[ws, we)``, each at most
     ``tile_cap`` wedges. Returns exact int64 ``(total (), per_vertex
     (n_pad,), per_edge (m,))``; modes not requested by ``mode`` come back
-    as zeros."""
+    as zeros. ``work`` is :func:`fused_work` of the same call, planned
+    on the host; the kernel plans it itself (from a device-to-host fetch)
+    when it is not given, and the plain version needs none."""
     _faults.maybe_oom("ops.fused_count_tiles")
     if direction not in ("low", "high"):
         raise ValueError(f"direction must be low|high, got {direction}")
@@ -159,8 +163,7 @@ def fused_count_tiles(
     if _on_cuda(neighbors, "fused_count_tiles"):
         out = _cuda.fused_count_tiles(
             tb, offsets, neighbors, edge_src, undirected_id, w_off,
-            tile_cap=tile_cap, n_pad=n_pad, m=m, direction=direction,
-            mode=mode,
+            n_pad=n_pad, m=m, direction=direction, mode=mode, work=work,
         )
         LAUNCHES["fused_count_tiles"] += 1
     else:
@@ -172,3 +175,18 @@ def fused_count_tiles(
     # value-level poison hook: this wrapper runs at host level, outside
     # any captured graph, so a planted sentinel reaches the validator
     return _faults.maybe_poison("ops.fused_count_tiles", out)
+
+
+def fused_work(tile_bounds, offsets: np.ndarray, w_off: np.ndarray,
+               device):
+    """The fused kernel's work list for a ``fused_count_tiles`` call on
+    ``device`` (``kernels/cuda.fused_work``), planned from host arrays
+    (the tile bounds, the (n_pad + 1,) CSR offsets and the (e_pad + 1,)
+    wedge prefix) and copied to the card without blocking the host.
+    None off the card, where the plain version needs none."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _cuda.upload_work(
+        _cuda.fused_work(tile_bounds, offsets, w_off, sms), device)

@@ -8,6 +8,8 @@ kernel is held against its plain PyTorch version on the same inputs,
 bit for bit (integer outputs, tolerance 0), and the counting engines on
 the card against the plain ``torch`` engine on the CPU.
 """
+import functools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -17,6 +19,7 @@ import numpy as np  # noqa: E402
 from repro_torch.core import count_butterflies, peel_tips, peel_wings  # noqa: E402
 from repro_torch.core.graph import BipartiteGraph, preprocess  # noqa: E402
 from repro_torch.core.pipeline import (  # noqa: E402
+    fused_host_inputs,
     fused_tile_inputs,
     plan_count,
 )
@@ -164,6 +167,78 @@ def test_fused_count_tiles_kernel_matches_plain(card, direction, mode,
     _equal(got, want)
 
 
+def _double_stars(hubs, leaves, spokes):
+    """``hubs`` disjoint double stars: hub h joins its ``leaves`` V
+    vertices, leaf i also joins spoke ``i % spokes`` of its hub. Under
+    the degree order and ``direction="low"`` every wedge starts at a hub
+    (``leaves`` wedges each)."""
+    e = []
+    for h in range(hubs):
+        v = h * leaves + np.arange(leaves)
+        e.append(np.stack([np.full(leaves, h), v], 1))
+        e.append(np.stack([hubs + h * spokes + np.arange(leaves) % spokes,
+                           v], 1))
+    return BipartiteGraph(hubs * (1 + spokes), hubs * leaves,
+                          np.concatenate(e))
+
+
+@functools.lru_cache(maxsize=None)
+def _work_graph(kind):
+    """A ranked graph that drives one part of the fused kernel's work
+    list (``direction="low"``): light batches only, one heavy hub split
+    over many chunks, 40 hubs in three rounds (of at most 16 counters
+    in flight), or both light and heavy work."""
+    g = {
+        "light": lambda: powerlaw_bipartite(800, 600, 5000, seed=2),
+        "hub": lambda: _double_stars(1, 40_000, 50),
+        "rounds": lambda: _double_stars(40, 15_000, 20),
+        "mixed": lambda: powerlaw_bipartite(20_000, 15_000, 200_000, seed=7),
+    }[kind]()
+    return preprocess(g, make_order(g, "degree"), "degree")
+
+
+@pytest.mark.parametrize("direction", ["low", "high"])
+@pytest.mark.parametrize("mode", ["global", "vertex", "edge", "all"])
+@pytest.mark.parametrize("kind", ["light", "hub", "rounds", "mixed",
+                                  "empty_tiles"])
+def test_fused_count_tiles_work_shapes_match_plain(card, kind, direction,
+                                                   mode):
+    """Each part of the redesigned kernel, bit for bit against the plain
+    version: light shared-memory batches, a heavy segment over many
+    blocks, heavy rounds that reuse their counters (which must come back
+    zeroed), a mix, and tile bounds with empty tiles and a tile that cuts
+    a vertex (grouped per tile, as the plain version groups)."""
+    rg = _work_graph("mixed" if kind == "empty_tiles" else kind)
+    dg = device_graph(rg, card)
+    wv = host_wedge_counts(rg, direction)
+    plan = plan_count(rg, mode=mode, direction=direction, budget=1 << 22,
+                      engine="fused_cuda", wv_slots=wv)
+    tb, w_off_h = fused_host_inputs(plan, rg.offsets, wv)
+    if kind == "empty_tiles":
+        w = int(w_off_h[-1])
+        tb = np.array([[0, 0], [0, 777], [777, 777], [777, w // 2],
+                       [w // 2, w], [w, w]], np.int64)
+    work = ops.fused_work(tb, rg.offsets, w_off_h, card)
+    if direction == "low":
+        shape = {"light": (True, 0), "hub": (False, 1), "rounds": (False, 3),
+                 "mixed": (True, 4)}.get(kind)
+        if shape is not None:
+            assert (work.light.shape[0] > 0, work.rounds.shape[0] - 1) == shape
+        if kind == "hub":
+            assert work.heavy.shape[0] > 100  # one segment, many blocks
+    w_off = torch.as_tensor(w_off_h, device=card)
+    args = (tb, dg.offsets, dg.neighbors, dg.edge_src, dg.undirected_id,
+            w_off)
+    kw = dict(n_pad=dg.n_pad, m=dg.m, direction=direction, mode=mode)
+    cap = max(int((tb[:, 1] - tb[:, 0]).max()), 1)
+    want = ref.fused_count_tiles_ref(torch.as_tensor(tb), *args[1:], **kw)
+    before = ops.LAUNCHES["fused_count_tiles"]
+    for _ in range(2):  # the second call finds the first's scratch reused
+        _equal(ops.fused_count_tiles(*args, tile_cap=cap, work=work, **kw),
+               want)
+    assert ops.LAUNCHES["fused_count_tiles"] == before + 2
+
+
 @pytest.mark.parametrize("engine,aggregation", [
     ("torch", "sort"), ("torch", "hash"), ("cuda", "hash"),
     ("cuda", "histogram"), ("fused", "auto"), ("fused_cuda", "sort"),
@@ -251,6 +326,39 @@ def test_bucket_min_kernel_matches_plain(card, dtype, n):
     _equal([got], [ref.bucket_min_ref(counts, alive)])
     none = torch.zeros_like(alive)
     assert int(ops.bucket_min(counts, none)) == 2**31 - 1
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", ["ragged", "view", "view_counts_only",
+                                  "nothing_alive", "wide_only",
+                                  "empty"])
+def test_bucket_min_edge_cases_match_plain(card, dtype, case):
+    """One launch per call, bit for bit: lengths off the 16-element
+    vector width, views whose data is not 16-byte aligned (the flags
+    aligned with the counts or not), nothing alive, only counts above
+    INT32_MAX alive (int64), an empty array. The kernel writes its own
+    output (the allocator hands it a dirty block) and its cross-block
+    scratch is clean again for the next call."""
+    for n in (1, 15, 17, 45_000, 300_001):
+        counts, alive, _, _ = _bucket_inputs(card, n, 0, dtype, n)
+        if case == "view":
+            counts, alive = counts[1:], alive[1:]
+        elif case == "view_counts_only":
+            counts, alive = counts[3:], alive[3:].clone()
+        elif case == "nothing_alive":
+            alive = torch.zeros_like(alive)
+        elif case == "wide_only":  # int32: INT32_MAX itself
+            counts = (counts.abs() + (2**31 - 1) if dtype == torch.int64
+                      else torch.full_like(counts, 2**31 - 1))
+        elif case == "empty":
+            counts, alive = counts[:0], alive[:0]
+        _dirty(card, 1)
+        before = ops.LAUNCHES["bucket_min"]
+        got = ops.bucket_min(counts, alive)
+        assert ops.LAUNCHES["bucket_min"] == before + 1
+        _equal([got], [ref.bucket_min_ref(counts, alive)])
+        if case in ("nothing_alive", "wide_only", "empty"):
+            assert int(got) == 2**31 - 1
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])

@@ -27,7 +27,11 @@ from repro.kernels.bucket_update import (  # noqa: E402
     lowest_nonempty_bucket as ref_lowest_nonempty_bucket,
 )
 from repro_torch.core.graph import RankedGraph  # noqa: E402
-from repro_torch.core.pipeline import fused_tile_inputs, plan_count  # noqa: E402
+from repro_torch.core.pipeline import (  # noqa: E402
+    fused_host_inputs,
+    fused_tile_inputs,
+    plan_count,
+)
 from repro_torch.core.wedges import device_graph, host_wedge_counts  # noqa: E402
 from repro_torch.kernels import cuda as kcuda  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -190,6 +194,134 @@ def test_fused_count_tiles_rejects_tile_over_cap():
             tb, dg.offsets, dg.neighbors, dg.edge_src, dg.undirected_id,
             w_off, tile_cap=widest - 1, n_pad=dg.n_pad, m=dg.m,
         )
+
+
+def _synthetic_csr(slot_wedges, slots_per_vertex):
+    """CSR offsets and the wedge prefix of a made-up graph, from each
+    slot's wedge count and each vertex's slot count."""
+    offsets = np.concatenate([[0], np.cumsum(slots_per_vertex)]).astype(np.int32)
+    w_off = np.concatenate([[0], np.cumsum(slot_wedges)]).astype(np.int64)
+    return offsets, w_off
+
+
+def test_fused_work_splits_light_and_heavy_at_the_threshold():
+    """Seven vertices, one tile: v0 (6,000 + 4,000 wedges) and v1
+    (4,000) pack into one light batch; v2 (20,000, across a zero slot)
+    and v6 (14,337) are heavy; v3 has no wedges; v4 holds exactly
+    FUSED_LIGHT_CAP = 14,336 wedges and is light, a batch of its own,
+    and v5's one wedge starts the next. Both heavy vertices fit one
+    round (2 counters of 7 entries); a round of 34,337 wedges on 132
+    SMs gets the smallest chunk, 256 wedges."""
+    assert kcuda.FUSED_LIGHT_CAP == 14_336
+    offsets, w_off = _synthetic_csr(
+        [6000, 4000, 4000, 10000, 0, 10000, 0, 14336, 1, 14337],
+        [2, 1, 3, 1, 1, 1, 1])
+    work = kcuda.fused_work(np.array([[0, 62_674]]), offsets, w_off, 132)
+    assert work.light.tolist() == [[0, 14_000, 0, 3],
+                                   [34_000, 48_336, 7, 8],
+                                   [48_336, 48_337, 8, 9]]
+    heavy = work.heavy.tolist()
+    assert len(heavy) == 79 + 57
+    assert heavy[0] == [14_000, 14_256, 3, 4, 0]
+    assert heavy[39] == [23_984, 24_240, 3, 6, 0]  # spans the zero slot 4
+    assert heavy[78] == [33_968, 34_000, 5, 6, 0]
+    assert heavy[79] == [48_337, 48_593, 9, 10, 1]
+    assert heavy[135] == [62_673, 62_674, 9, 10, 1]
+    assert work.rounds.tolist() == [0, 136]
+    assert (work.in_flight, work.scratch_bytes) == (2, 2 * 8 * 7)
+    assert work.device is None
+
+
+def test_fused_work_rounds_respect_the_l2_budget():
+    """n_pad = 2^20: a counter is 8 MiB, so a segment of 262,144 wedges
+    or more can touch all of it, and three fill the 24 MiB budget. The
+    heavy segments, largest first: 700k, 600k, 500k in round 0; 400k,
+    300k, then 20k (640,000 B of sectors) and 15k (480,000 B) still fit
+    round 1. Chunks: ceil(1.8M / 1,056) = 1,705 wedges in round 0, ceil(
+    735,000 / 1,056) = 697 in round 1."""
+    assert kcuda.FUSED_L2_BYTES == 24 << 20
+    n_pad = 1 << 20
+    wedges = np.zeros(n_pad, np.int64)
+    wedges[:7] = [20_000, 300_000, 700_000, 15_000, 500_000, 400_000,
+                  600_000]
+    offsets, w_off = _synthetic_csr(wedges, np.ones(n_pad, np.int64))
+    work = kcuda.fused_work(np.array([[0, 2_535_000]]), offsets, w_off, 132)
+    assert work.light.shape == (0, 4)
+    assert work.rounds.tolist() == [0, 411 + 352 + 294,
+                                    411 + 352 + 294 + 574 + 431 + 29 + 22]
+    heavy = work.heavy
+    r0, r1 = heavy[:1057], heavy[1057:]
+    assert heavy[0].tolist() == [320_000, 321_705, 2, 3, 0]  # v2, 700k
+    assert sorted(set(r0[:, 4].tolist())) == [0, 1, 2]
+    assert sorted(set(r1[:, 4].tolist())) == [0, 1, 2, 3]
+    assert r1[0].tolist() == [1_535_000, 1_535_697, 5, 6, 0]  # v5, 400k
+    assert r1[-1].tolist() == [1_034_637, 1_035_000, 3, 4, 3]  # v3, 15k
+    assert (work.in_flight, work.scratch_bytes) == (4, 4 * 8 * n_pad)
+
+
+def test_fused_work_keeps_one_counter_in_flight_when_it_outgrows_l2():
+    """n_pad = 2^22: one counter (32 MiB) is larger than the budget, so
+    each heavy segment is a round of its own, cut into chunks of
+    ceil(3M / 1,056) = 2,841 and ceil(2M / 1,056) = 1,894 wedges."""
+    n_pad = 1 << 22
+    wedges = np.zeros(n_pad, np.int64)
+    wedges[[5, 9]] = [2_000_000, 3_000_000]
+    offsets, w_off = _synthetic_csr(wedges, np.ones(n_pad, np.int64))
+    work = kcuda.fused_work(np.array([[0, 5_000_000]]), offsets, w_off, 132)
+    assert work.rounds.tolist() == [0, 1056, 2112]
+    assert work.heavy[0].tolist() == [2_000_000, 2_002_841, 9, 10, 0]
+    assert work.heavy[1056].tolist() == [0, 1_894, 5, 6, 0]
+    assert (work.in_flight, work.scratch_bytes) == (1, 8 * n_pad)
+
+
+@pytest.mark.parametrize("direction", ["low", "high"])
+@pytest.mark.parametrize("tiles", ["plan", "cut_empty_and_repeated"])
+def test_fused_work_covers_every_wedge_of_every_tile_once(direction, tiles):
+    """Every wedge of every tile lies in exactly one light batch or heavy
+    chunk (a repeated tile counts twice, as the plain version counts
+    it); every row's slot range brackets its wedges; a round never puts
+    two segments on one counter."""
+    g = ref_powerlaw(300, 250, 3000, seed=5)
+    ref_rg = ref_preprocess(g, ref_make_order(g, "degree"), "degree")
+    rg = RankedGraph.from_arrays(**vars(ref_rg))
+    wv = host_wedge_counts(rg, direction)
+    plan = plan_count(rg, mode="all", direction=direction, budget=512,
+                      wv_slots=wv)
+    tb, w_off = fused_host_inputs(plan, rg.offsets, wv)
+    w = int(w_off[-1])
+    if tiles == "cut_empty_and_repeated":
+        tb = np.array([[0, 0], [0, w // 3], [w // 3, w], [w, w],
+                       [w // 5, w // 2]], np.int64)
+    work = kcuda.fused_work(tb, rg.offsets, w_off, 132)
+    rows = np.concatenate([work.light, work.heavy[:, :4]])
+    got = np.sort(np.concatenate([np.arange(a, b) for a, b, _l, _h in rows]))
+    want = np.sort(np.concatenate([np.arange(a, b) for a, b in tb]))
+    assert np.array_equal(got, want)
+    assert (w_off[rows[:, 2]] <= rows[:, 0]).all()
+    assert (w_off[rows[:, 3]] >= rows[:, 1]).all()
+    assert ((work.light[:, 1] - work.light[:, 0]) <= kcuda.FUSED_LIGHT_CAP).all()
+    src = rg.edge_src
+    for r in range(work.rounds.shape[0] - 1):
+        chunk = work.heavy[work.rounds[r]:work.rounds[r + 1]]
+        owner = {}
+        for t0, _t1, e_lo, _e_hi, buf in chunk.tolist():
+            assert owner.setdefault(buf, src[e_lo]) == src[e_lo]
+    assert ops.fused_work(tb, rg.offsets, w_off, CPU) is None
+
+
+def test_ctypes_signatures_match_the_c_entries():
+    """Each exported C entry takes exactly the arguments its ctypes
+    signature lists, the stream last; a missing one would truncate the
+    stream pointer."""
+    import re
+
+    text = "".join((kcuda.CSRC / name).read_text() for name in kcuda.SOURCES)
+    for name, argtypes in kcuda._SIGNATURES.items():
+        m = re.search(rf"BF_EXPORT int {name}\(([^)]*)\)", text)
+        assert m is not None, name
+        params = [p.strip() for p in m.group(1).split(",")]
+        assert len(params) == len(argtypes), name
+        assert params[-1] == "void* stream", name
 
 
 def test_wrappers_refuse_other_devices():
