@@ -21,10 +21,13 @@ Phases, each of which fails the run loudly:
      and timed beside it, with its per-launch device times and its plan;
   5. drive the counting path, ``count_butterflies(g, mode="all",
      order="degree", count_dtype=torch.int64)``, through ``fused_cuda``,
-     ``cuda`` with hash aggregation, and the plain ``fused`` engine, with
-     the kernels' launch counts zeroed just before each run and read just
-     after; the three must agree bit for bit, satisfy the 4B identities,
-     and match the pinned reference computed by the JAX package;
+     ``cuda`` with hash aggregation, the plain ``fused`` engine, and the
+     ``torch`` engine with the ``batch`` and ``batch_wa`` aggregations
+     (blocks issued from a host loop; each call prints its block
+     count), with the kernels' launch counts zeroed just before each run
+     and read just after; all five must agree bit for bit, satisfy the
+     4B identities, and match the pinned reference computed by the JAX
+     package;
   6. profile one more ``fused_cuda`` call (``torch.profiler``) and print
      the device's busy time (kernels and copies) and its idle share of the
      unprofiled ``fused_cuda`` wall of phase 5, with the top device rows;
@@ -66,6 +69,7 @@ and 16.7e12 int32 operations/s (64 INT32 lanes per SM x 132 SMs x
 import hashlib
 import json
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -98,6 +102,8 @@ MAIN_PATH = (
     ("fused_cuda", "sort"),
     ("cuda", "hash"),
     ("fused", "sort"),
+    ("torch", "batch"),
+    ("torch", "batch_wa"),
 )
 # (decomposition, graph, knobs, the kernel the call must launch)
 PEEL_PATH = (
@@ -115,6 +121,16 @@ PEEL_PATH = (
     ("wings", "PEEL_WINGS", dict(engine="device", decrease_key="scatter"),
      "bucket_min"),
     ("wings", "PEEL_WINGS_HOST", dict(engine="host"), "bucket_min"),
+    ("stored", "PEEL_TIPS", dict(engine="device", decrease_key="bucket"),
+     "bucket_update"),
+    ("tips", "PEEL_TIPS",
+     dict(engine="device", subtract="materialize", decrease_key="scatter",
+          capacity_schedule="adaptive"),
+     "bucket_min"),
+    ("wings", "PEEL_WINGS",
+     dict(engine="device", subtract="materialize",
+          capacity_schedule="adaptive"),
+     "bucket_update"),
 )
 TAPPED = ("bucket_min", "bucket_update")
 # Names of each kernel's launches in the profiler's device rows.
@@ -377,6 +393,28 @@ def check_kernels(g, rg, ref, dev):
     return rows
 
 
+def batch_blocks(rg) -> dict:
+    """The blocks the batch aggregations cut on the smoke graph (their
+    host planner, run once more outside the timed calls): all blocks,
+    those holding wedges (the host loop's iterations), the largest."""
+    from repro_torch.core.count import _batch_bounds
+    from repro_torch.core.wedges import host_wedge_counts
+
+    wv_slots = host_wedge_counts(rg, "low")
+    wv = np.zeros(rg.n_pad, dtype=np.int64)
+    np.add.at(wv, rg.edge_src[: 2 * rg.m].astype(np.int64),
+              wv_slots[: 2 * rg.m])
+    voff = np.concatenate([[0], np.cumsum(wv)])
+    out = {}
+    for agg in ("batch", "batch_wa"):
+        bounds, most = _batch_bounds(wv, rg.n_pad, agg == "batch_wa", 8,
+                                     1 << 14)
+        held = np.diff(voff[bounds])
+        out[agg] = (f"blocks {held.size} ({int((held > 0).sum())} with "
+                    f"wedges, largest {most} wedges), ")
+    return out
+
+
 def profile_call(g, dev, wall_s: float) -> None:
     """Trace one more fused_cuda call with torch.profiler and print the
     device's busy time (the device-side rows: kernels, copies, fills)
@@ -448,12 +486,55 @@ class KernelTap:
         self.calls[name] += 1
 
 
+def rss_gib() -> tuple:
+    """(current, peak) resident memory of this process in GiB."""
+    with open("/proc/self/status") as f:
+        cur = next(int(line.split()[1]) for line in f
+                   if line.startswith("VmRSS:"))
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return cur / 2**20, peak / 2**20
+
+
+class CsrTap:
+    """Times ``peel._stored_wedge_csr`` (the stored-wedge CSR that
+    ``peel_tips_stored`` builds with host numpy) while the peeling path
+    runs, and prints its seconds, the bytes of its two arrays and the
+    process's resident memory around it."""
+
+    def __init__(self, peel):
+        self.peel = peel
+        self.orig = peel._stored_wedge_csr
+
+    def __enter__(self):
+        def tapped(g, side, *args, **kw):
+            before = rss_gib()
+            t0 = time.perf_counter()
+            woff, w_u2 = self.orig(g, side, *args, **kw)
+            secs = time.perf_counter() - t0
+            after = rss_gib()
+            print(f"stored-wedge CSR (host): {secs:.3f} s, W={int(woff[-1])} "
+                  f"wedges, woff {woff.nbytes} B ({woff.dtype}) + w_u2 "
+                  f"{w_u2.nbytes} B ({w_u2.dtype}); RSS {before[0]:.2f} -> "
+                  f"{after[0]:.2f} GiB, peak RSS {before[1]:.2f} -> "
+                  f"{after[1]:.2f} GiB", flush=True)
+            return woff, w_u2
+
+        self.peel._stored_wedge_csr = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.peel._stored_wedge_csr = self.orig
+
+
 def peel_phase(dev, launches):
     """Phase 7: the peeling path. Returns the kernel tap and the
     PEEL_TIPS graph."""
-    from repro_torch.core import peel_tips, peel_wings
+    from repro_torch.core import peel, peel_tips, peel_tips_stored, peel_wings
     from repro_torch.data.graphs import powerlaw_bipartite
     from repro_torch.kernels import ops
+
+    entry = {"tips": peel_tips, "stored": peel_tips_stored,
+             "wings": peel_wings}
 
     with open(PEEL_REFERENCE) as f:
         ref = json.load(f)
@@ -471,9 +552,9 @@ def peel_phase(dev, launches):
               f"content_hash matches the pin", flush=True)
 
     results = []
-    with KernelTap(ops) as tap:
+    with KernelTap(ops) as tap, CsrTap(peel):
         for kind, gname, knobs, kernel in PEEL_PATH:
-            fn = peel_tips if kind == "tips" else peel_wings
+            fn = entry[kind]
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -489,15 +570,22 @@ def peel_phase(dev, launches):
             label = f"{kind} {gname} " + " ".join(
                 f"{k}={v}" for k, v in knobs.items())
             print(f"peel {label}: wall {wall:.3f} s, host syncs "
-                  f"{rep.host_syncs}, peak {peak:.3f} GiB, rounds "
-                  f"{r.rounds}, sub_rounds {r.sub_rounds}, launches "
-                  f"{used}, rungs {rep.summary().split(' | ')[0]}",
-                  flush=True)
+                  f"{rep.host_syncs}, segments {rep.segments}, largest "
+                  f"frontier {rep.frontier_lanes} lanes, peak {peak:.3f} "
+                  f"GiB, rounds {r.rounds}, sub_rounds {r.sub_rounds}, "
+                  f"launches {used}, rungs "
+                  f"{rep.summary().split(' | ')[0]}", flush=True)
             if rep.final_rung != knobs["engine"] or rep.degraded:
                 fail(f"peel {label} did not finish on its own rung: "
                      f"{rep.summary()}")
             if used[kernel] == 0:
                 fail(f"peel {label} ran without launching {kernel}")
+            if used["fused_count_tiles"] == 0:
+                fail(f"peel {label} counted without fused_count_tiles")
+            adaptive = knobs.get("capacity_schedule") == "adaptive"
+            if knobs["engine"] == "device" and (
+                    rep.segments <= 1 if adaptive else rep.segments != 1):
+                fail(f"peel {label} ran {rep.segments} capacity segments")
             for name, n in used.items():
                 launches[name] += n
             results.append((kind, gname, knobs, r))
@@ -507,17 +595,21 @@ def peel_phase(dev, launches):
         if r.numbers.dtype != np.int64 or digest(r.numbers) != want["sha256_int64"]:
             fail(f"{kind} {gname} {knobs}: numbers differ from the pinned "
                  f"JAX reference")
+        if digest(r.round_sizes) != want["round_sizes_sha256_int64"]:
+            fail(f"{kind} {gname} {knobs}: round sizes differ from the "
+                 f"pinned JAX reference")
         if (r.rounds, r.sub_rounds) != (want["rounds"], want["sub_rounds"]):
             fail(f"{kind} {gname} {knobs}: rounds/sub_rounds "
                  f"{r.rounds}/{r.sub_rounds} differ from the pinned "
                  f"{want['rounds']}/{want['sub_rounds']}")
-        if kind == "tips" and r.side != ref[gname]["side"]:
-            fail(f"tips peeled side {r.side}, pinned {ref[gname]['side']}")
-    tips = [r for kind, _g, _k, r in results if kind == "tips"]
+        if kind != "wings" and r.side != ref[gname]["side"]:
+            fail(f"{kind} peeled side {r.side}, pinned "
+                 f"{ref[gname]['side']}")
+    tips = [r for kind, _g, _k, r in results if kind != "wings"]
     ex = [r for kind, _g, k, r in results
-          if kind == "tips" and k.get("peel_mode") == "exact"]
+          if kind != "wings" and k.get("peel_mode", "exact") == "exact"]
     rg = [r for kind, _g, k, r in results
-          if kind == "tips" and k.get("peel_mode") == "range"]
+          if kind != "wings" and k.get("peel_mode") == "range"]
     if not all(np.array_equal(t.numbers, tips[0].numbers) for t in tips):
         fail("tip numbers differ between the tip calls")
     if any(r.sub_rounds != ex[0].rounds for r in rg):
@@ -526,8 +618,11 @@ def peel_phase(dev, launches):
              if kind == "wings" and g_ == "PEEL_WINGS"]
     if not all(np.array_equal(w.numbers, wings[0].numbers) for w in wings):
         fail("wing numbers differ between the device wing calls")
-    print("peel: tip and wing numbers bitwise equal across calls and to the "
-          "pinned JAX reference; exact rounds == range sub_rounds", flush=True)
+    if any(r.rounds != ex[0].rounds for r in ex):
+        fail("exact-mode tip rounds differ between the tip calls")
+    print("peel: tip (PEEL-V and WPEEL-V) and wing numbers bitwise equal "
+          "across calls and to the pinned JAX reference; exact rounds == "
+          "range sub_rounds", flush=True)
     return tap, graphs["PEEL_TIPS"]
 
 
@@ -729,6 +824,7 @@ def main() -> int:
     results = {}
     walls = {}
     launches = {name: 0 for name in ops.LAUNCHES}
+    blocks = batch_blocks(rg)
     for engine, agg in MAIN_PATH:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -745,7 +841,7 @@ def main() -> int:
         rep = r.report
         print(f"main path engine={engine} aggregation={agg}: "
               f"wall {wall:.3f} s, peak {peak:.2f} GiB, launches {used}, "
-              f"rungs {rep.summary()}", flush=True)
+              f"{blocks.get(agg, '')}rungs {rep.summary()}", flush=True)
         if rep.final_rung != engine or rep.retries or rep.degraded:
             fail(f"engine {engine} did not finish on its own rung: "
                  f"{rep.summary()}")
@@ -756,15 +852,15 @@ def main() -> int:
             fail("cuda+hash ran without launching both of its kernels")
         for name, n in used.items():
             launches[name] += n
-        results[engine] = r
-        walls[engine] = wall
+        results[engine, agg] = r
+        walls[engine, agg] = wall
 
-    base = results["fused_cuda"]
-    for engine, r in results.items():
+    base = results["fused_cuda", "sort"]
+    for key, r in results.items():
         for field in ("total", "per_u", "per_v", "per_edge"):
             a, b = getattr(base, field), getattr(r, field)
             if a.dtype != np.int64 or not np.array_equal(a, b):
-                fail(f"{engine} {field} differs from fused_cuda")
+                fail(f"{key} {field} differs from fused_cuda")
     total = int(base.total)
     su, sv, se = (int(base.per_u.sum()), int(base.per_v.sum()),
                   int(base.per_edge.sum()))
@@ -775,13 +871,12 @@ def main() -> int:
     if total != ref["total"] or got != ref["sha256_int64"]:
         fail(f"counts differ from the pinned JAX reference: total {total} "
              f"vs {ref['total']}, digests {got}")
-    print(f"counts: total={total} bitwise equal across "
-          f"{[e for e, _ in MAIN_PATH]} and to the pinned JAX reference",
-          flush=True)
+    print(f"counts: total={total} bitwise equal across {list(MAIN_PATH)} "
+          f"and to the pinned JAX reference", flush=True)
 
     # -- 6. where one fused_cuda call spends its time -------------------
     phase(6)
-    profile_call(g, dev, walls["fused_cuda"])
+    profile_call(g, dev, walls["fused_cuda", "sort"])
     del g, rg, results, base
     torch.cuda.empty_cache()
 

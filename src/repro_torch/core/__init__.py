@@ -2,7 +2,8 @@
 from .graph import BipartiteGraph, RankedGraph, preprocess
 from .ranking import RANKINGS, make_order, wedges_processed
 from .count import CountResult, count_butterflies, count_from_ranked
-from .peel import PeelResult, peel_tips, peel_wings
+from .fibheap import BucketStructure, FibHeap
+from .peel import PeelResult, peel_tips, peel_tips_stored, peel_wings
 from .resilience import (
     AccumulatorOverflowRisk,
     CapacityOverflow,
@@ -30,7 +31,10 @@ __all__ = [
     "count_from_ranked",
     "PeelResult",
     "peel_tips",
+    "peel_tips_stored",
     "peel_wings",
+    "FibHeap",
+    "BucketStructure",
     "ResilienceError",
     "GraphValidationError",
     "CapacityOverflow",

@@ -28,6 +28,16 @@ Engines, one-to-one with the reference package's (:data:`ENGINE_MAP`):
 Every engine gives bitwise-identical counts. The degradation ladders
 are ``fused_cuda -> fused -> torch`` and ``cuda -> torch``.
 
+``aggregation="batch"|"batch_wa"`` are the paper's simple and
+wedge-aware batching (§3.1.2), on the ``torch`` engine only, as in the
+reference: blocks of at most ``batch_rows`` consecutive iterating
+vertices (wedge-aware: also at most ``batch_target`` wedges, a heavier
+vertex alone) each group their wedges in a dense ``rows x n_pad``
+table, with the scatter-min of lane ids picking each group's
+representative. Blocks are cut on the host and issued from a host loop
+that reads nothing back; each block holds exactly its own wedges (the
+reference pads every block to the largest).
+
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; on a CPU tensor the kernel wrappers take their plain
 PyTorch versions. ``count_dtype=None`` counts in int32, as the
@@ -52,9 +62,11 @@ from .wedges import (
     auto_chunk_budget,
     device_graph,
     gather_wedges,
+    greedy_vertex_blocks,
     host_wedge_counts,
     shrink_budget,
     slot_wedge_counts,
+    wedge_offsets,
 )
 
 __all__ = [
@@ -73,7 +85,8 @@ __all__ = [
 
 ENGINES = ("torch", "cuda", "fused", "fused_cuda")
 MODES = _pipeline.MODES
-AGGREGATIONS = ("sort", "hash", "histogram", "auto")
+AGGREGATIONS = ("sort", "hash", "histogram", "auto", "batch", "batch_wa")
+BATCH_AGGREGATIONS = ("batch", "batch_wa")
 
 # reference engine name -> port engine name
 ENGINE_MAP = {
@@ -142,7 +155,10 @@ def _plan_from_knobs(
     budget rules live. Returns None for the materializing torch/cuda
     path under budget. Unlike the reference's ``fused_pallas``, the
     ``fused_cuda`` budget is not clamped to a small kernel tile: the
-    kernel's hash table is sized from the plan (``MAX_TILE_CAP``)."""
+    kernel's hash table is sized from the plan (``MAX_TILE_CAP``). The
+    batch aggregations cut their own blocks: no plan."""
+    if aggregation in BATCH_AGGREGATIONS:
+        return None
     budget = _resolve_chunk_budget(max_chunk, device)
     if wv_slots is None:
         wv_slots = host_wedge_counts(rg, direction)
@@ -164,6 +180,99 @@ def _plan_from_knobs(
     )
 
 
+def _batch_bounds(wv: np.ndarray, n: int, wedge_aware: bool, rows: int,
+                  target: int) -> tuple:
+    """Vertex-block boundaries for batching: simple, ``rows`` vertices
+    per block; wedge-aware, greedy blocks of at most ``rows`` vertices
+    and about ``target`` wedges (paper §3.1.2). Returns (boundaries
+    (n_blocks + 1,), most wedges in one block)."""
+    return greedy_vertex_blocks(
+        wv, n, rows=rows, target=target if wedge_aware else None
+    )
+
+
+def _count_batch(dg, rg: RankedGraph, wv_slots: np.ndarray, *,
+                 wedge_aware: bool, rows: int, target: int, mode: str,
+                 direction: str, dtype: torch.dtype):
+    """Batch aggregation (the paper's simple and wedge-aware batching).
+
+    Each block owns the wedges of a contiguous range of iterating
+    vertices (wedge ids follow CSR order, so the range is contiguous in
+    wedge space, and the host knows it from ``wv_slots``). A dense
+    ``(rows, n_pad)`` int32 table, allocated once and cleared where each
+    block wrote, plays the per-worker array of the paper: row = the
+    iterating endpoint's offset in the block, column = the other
+    endpoint. The scatter-min of lane ids over the same keys picks each
+    group's representative, which adds the group's C(d, 2) (the
+    reference's replacement for the serial "first time I see this
+    endpoint" test). No block reads the device back."""
+    n_real = 2 * rg.m
+    wv = np.zeros(rg.n_pad, dtype=np.int64)
+    np.add.at(wv, rg.edge_src[:n_real].astype(np.int64), wv_slots[:n_real])
+    bounds, _ = _batch_bounds(wv, rg.n_pad, wedge_aware, rows, target)
+    first = np.concatenate([[0], np.cumsum(wv_slots)])[
+        rg.offsets.astype(np.int64)]  # flat id of each vertex's first wedge
+    n_pad, m, dev = dg.n_pad, dg.m, dg.device
+    off, nbr = dg.offsets.long(), dg.neighbors.long()
+    src, uid = dg.edge_src.long(), dg.undirected_id.long()
+    cnt = slot_wedge_counts(dg, direction)
+    w_off = wedge_offsets(cnt)
+    table = torch.zeros(rows * n_pad, dtype=torch.int32, device=dev)
+    rep_t = torch.full((rows * n_pad,), _pipeline.I32_MAX, dtype=torch.int32,
+                       device=dev)
+    tot = torch.zeros((), dtype=dtype, device=dev)
+    buf = torch.zeros(
+        {"global": 0, "vertex": n_pad, "edge": m, "all": n_pad + m}[mode],
+        dtype=dtype, device=dev)
+    for v0, v1 in zip(bounds[:-1], bounds[1:]):
+        ws, we = int(first[v0]), int(first[v1])
+        if we == ws:
+            continue  # a block of wedge-less vertices adds nothing
+        # recover the block's wedges (every lane is one)
+        wid = torch.arange(ws, we, device=dev)
+        e = torch.searchsorted(w_off, wid, right=True) - 1
+        j = wid - w_off[e]
+        y = nbr[e]
+        if direction == "low":
+            pos = off[y + 1] - cnt[e] + j
+            x1, x2 = src[e], nbr[pos]
+            row, col = x1 - v0, x2
+        else:
+            pos = off[y] + j
+            x1, x2 = nbr[pos], src[e]
+            row, col = x2 - v0, x1
+        # group in the dense table; the lowest lane is the representative
+        tkey = row * n_pad + col
+        lid = torch.arange(we - ws, dtype=torch.int32, device=dev)
+        table.index_add_(0, tkey, torch.ones_like(lid))
+        rep_t.scatter_reduce_(0, tkey, lid, "amin")
+        d = table[tkey]
+        rep = rep_t[tkey] == lid
+        table[tkey] = 0
+        rep_t[tkey] = _pipeline.I32_MAX
+        g_add = torch.where(rep, _pipeline.choose2(d, dtype), 0)
+        dm1 = (d - 1).to(dtype)
+        if mode in ("global", "all"):
+            tot = (tot + g_add.sum()).to(dtype)
+        if mode == "vertex":
+            idx = torch.cat([x1, x2, y])
+            upd = torch.cat([g_add, g_add, dm1])
+        elif mode == "edge":
+            idx = torch.cat([uid[e], uid[pos]])
+            upd = torch.cat([dm1, dm1])
+        elif mode == "all":
+            # one combined [vertex | edge] scatter per block
+            idx = torch.cat([x1, x2, y, n_pad + uid[e], n_pad + uid[pos]])
+            upd = torch.cat([g_add, g_add, dm1, dm1, dm1])
+        if mode != "global":
+            buf.index_add_(0, idx, upd)
+    if mode == "global":
+        return tot
+    if mode == "all":
+        return tot, buf[:n_pad], buf[n_pad:]
+    return buf
+
+
 def count_from_ranked(
     rg: RankedGraph,
     *,
@@ -171,6 +280,8 @@ def count_from_ranked(
     mode: str = "global",
     cache_opt: bool = False,
     count_dtype=None,
+    batch_rows: int = 8,
+    batch_target: int = 1 << 14,
     engine: str = "torch",
     max_chunk=None,
     hash_bits: Optional[int] = None,
@@ -183,7 +294,9 @@ def count_from_ranked(
     ``max_chunk`` bounds the tile/stream budget: an int, ``"auto"``
     (derived from device memory), or None (materialize for torch/cuda;
     auto for the fused engines). ``hash_bits`` overrides the hash-table
-    size. ``device=None`` means CUDA."""
+    size. ``batch_rows``/``batch_target`` size the blocks of
+    ``aggregation="batch"|"batch_wa"``, which run on ``engine="torch"``
+    only (ValueError otherwise). ``device=None`` means CUDA."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be {'|'.join(ENGINES)}, got {engine}")
     if mode not in MODES:
@@ -205,6 +318,18 @@ def count_from_ranked(
         aggregation = "sort"
     dg = device_graph(rg, device)
     wv_slots = host_wedge_counts(rg, direction)
+    if aggregation in BATCH_AGGREGATIONS:
+        if engine != "torch":
+            raise ValueError(
+                "batch aggregations fuse their own accumulation and do "
+                "not route through the cuda or fused engines; use "
+                "engine='torch'"
+            )
+        return _count_batch(
+            dg, rg, wv_slots, wedge_aware=aggregation == "batch_wa",
+            rows=int(batch_rows), target=int(batch_target), mode=mode,
+            direction=direction, dtype=dtype,
+        )
     plan = _plan_from_knobs(
         rg,
         aggregation=aggregation,
@@ -327,6 +452,7 @@ def count_butterflies(
     mode: str = "global",
     cache_opt: bool = False,
     count_dtype=None,
+    batch_rows: int = 8,
     engine: str = "torch",
     max_chunk=None,
     resilience=None,
@@ -346,8 +472,10 @@ def count_butterflies(
     worst-case accumulator preflight
     (:meth:`BipartiteGraph.accumulator_preflight`) raises
     :class:`~repro_torch.core.resilience.AccumulatorOverflowRisk` up
-    front when even int64 accumulation could silently wrap.
-    ``device=None`` means CUDA; pass ``device="cpu"`` for the host.
+    front when even int64 accumulation could silently wrap. The batch
+    aggregations (``batch_rows`` vertices per block) run one rung,
+    ``torch``. ``device=None`` means CUDA; pass ``device="cpu"`` for the
+    host.
     """
     device = resolve_device(device)
     policy = _res.resolve_policy(resilience)
@@ -356,6 +484,8 @@ def count_butterflies(
     if policy.validate_results:
         g.accumulator_preflight()
     ladder = COUNT_LADDERS.get(engine, (engine,))
+    if aggregation in BATCH_AGGREGATIONS:
+        ladder = (engine,)  # batch fuses its own accumulation: one rung
 
     def _make_rung(eng):
         def run(shrinks):
@@ -371,6 +501,7 @@ def count_butterflies(
                 mode=mode,
                 cache_opt=cache_opt,
                 count_dtype=count_dtype,
+                batch_rows=batch_rows,
                 engine=eng,
                 max_chunk=mc,
                 device=device,

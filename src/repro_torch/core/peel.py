@@ -1,5 +1,5 @@
 """Butterfly peeling: tip (vertex) and wing (edge) decomposition
-(paper §4.3, Algs. 5-6), in PyTorch.
+(paper §4.3, Algs. 5-7), in PyTorch.
 
 Round structure (all engines):
   κ <- max(κ, min butterfly count among alive)   [bucketing extract-min]
@@ -7,6 +7,12 @@ Round structure (all engines):
   enumerate wedges/butterflies incident to A     [prefix-sum expansion
                                                   of the CSR]
   aggregate + subtract contributions             [sort or hash grouping]
+
+Decompositions: tips (PEEL-V, Alg. 5, ``peel_tips``), stored-wedge tips
+(WPEEL-V, Alg. 7, ``peel_tips_stored``: every side-oriented wedge is
+stored up front in a CSR keyed by its first endpoint, and a round looks
+its frontier up instead of re-enumerating two hops) and wings (PEEL-E,
+Alg. 6, ``peel_wings``).
 
 Engines (``engine=``):
 
@@ -19,17 +25,33 @@ Engines (``engine=``):
     per round fetches the scalars that steer the loop (min, peel-set
     size, bucket selection, frontier totals), plus one per round whose
     tip frontier spans more than one tile. The reference keeps this
-    loop in one ``lax.while_loop`` with one sync per decomposition; the
-    port's per-round sync is its known divergence, counted in
+    loop in one ``lax.while_loop`` with one sync per capacity segment;
+    the port's per-round sync is its known divergence, counted in
     ``report.host_syncs``.
 
 Knobs of the device engine:
 
+  - ``subtract="fused"`` (default): a round's frontier streams through
+    tiles of at most ``tile_budget`` lanes, recovered from flat ids
+    (``wedges.ragged_slots_at``); WPEEL-V recovers them straight from
+    the stored-wedge CSR, with no frontier buffer at all.
+    ``"materialize"``: the whole round frontier is one tile of exactly
+    its lanes, bounded by ``max_frontier`` (the reference pads it to a
+    power of two; the port pads nothing). The numbers are the same.
   - ``decrease_key="bucket"`` (default): each tile's aggregated update
     batch goes through the ``bucket_update`` kernel, which returns the
     next round's masked min (and, in range mode, the bit-length
     occupancy) from the same pass. ``"scatter"``: an in-place scatter
     per tile and the ``bucket_min`` kernel at the top of each round.
+  - ``capacity_schedule="fixed"|"adaptive"``: the planned frontier
+    capacities (level 1 of PEEL-V, the materialized buffers) stay as
+    planned, or shrink geometrically as the graph empties: the loop
+    tracks the remaining work, leaves a segment when it falls to a
+    quarter of a capacity and re-enters with power-of-two-shrunk
+    capacities, at the reference's exit points, so ``report.segments``
+    equals the reference's segment count. The port pads no buffer, so
+    the capacities only bound the overflow test; the numbers are the
+    same.
   - ``peel_mode="exact"|"range"``: one round per distinct κ, or one
     round per geometric bucket ``[2^(k-1), 2^k)`` whose in-bucket
     re-settle iterations replay the exact κ trajectory (``sub_rounds``
@@ -37,20 +59,21 @@ Knobs of the device engine:
   - ``aggregation="sort"|"hash"``: the grouping of a tile's wedge pairs
     (tips) or butterfly edge ids (wings); hash falls back to sort on a
     table overflow. The numbers are the same.
-  - ``tile_budget``: lanes per subtract tile. Tiles are cut as the
-    reference cuts them (tips at peeled-vertex boundaries,
+  - ``tile_budget``: lanes per fused subtract tile. Tiles are cut as
+    the reference cuts them (tips at peeled-vertex boundaries,
     ``wedges.aligned_tile_end``, wings every ``tile_cap`` lanes) but
     never padded, so a small round pays only its own lanes and the
     budget only bounds peak memory: the port's default is 2^20 where the
     reference, which pads every tile, takes 1024.
-  - ``max_frontier`` bounds the tip engine's level-1 frontier; a round
-    beyond it descends to the host engine, never a silent truncation.
-    Counts at or beyond INT32_MAX also take the host engine.
+  - ``max_frontier`` bounds the planned frontier capacities: PEEL-V's
+    level-1 frontier, and under ``"materialize"`` the whole frontier of
+    every decomposition. A round beyond it descends to the host engine,
+    never a silent truncation. Counts at or beyond INT32_MAX also take
+    the host engine.
 
 Not ported yet (each raises ``NotImplementedError``, ROADMAP.md queue 1
-step 5): ``subtract="materialize"``, ``capacity_schedule="adaptive"``,
-the distributed rung (``devices=``, ``checkpoint=``,
-``round_deadline_s=``, ``deadline_s=``) and ``peel_tips_stored``.
+step 7): the distributed rung (``devices=``, ``checkpoint=``,
+``round_deadline_s=``, ``deadline_s=``).
 
 Double-count avoidance (paper §4.3.1/§4.3.2): peel-set members are
 processed against a virtual rank order (their id); an element of the
@@ -96,6 +119,7 @@ from .wedges import (
 __all__ = [
     "PeelResult",
     "peel_tips",
+    "peel_tips_stored",
     "peel_wings",
     "peel_validator",
     "PEEL_ENGINES",
@@ -116,7 +140,7 @@ PEEL_MODES = ("exact", "range")
 # (a few hundred bytes per lane).
 _DEFAULT_TILE_TARGET = 1 << 20
 
-_NOT_PORTED = "not ported to PyTorch yet (ROADMAP.md, queue 1 step 5)"
+_NOT_PORTED = "not ported to PyTorch yet (ROADMAP.md, queue 1 step 7)"
 
 
 class PeelResult(NamedTuple):
@@ -186,6 +210,45 @@ def _level2_totals(off: np.ndarray, nbr: np.ndarray, base: int,
         v_rep = nbr[_ranges(off[ids], d1)]
         np.add.at(w2, np.repeat(np.arange(n_side), d1), deg[v_rep])
     return w2
+
+
+def _stored_wedge_csr(g: BipartiteGraph, side: int, block: int = 1 << 24):
+    """All side-oriented wedges keyed by first endpoint (Alg. 7's W_e):
+    CSR ``(woff, w_u2)`` with ``w_u2[woff[u]:woff[u+1]]`` the second
+    endpoints of u's wedges (u2 != u1), in the reference's order and
+    with its values. O(Σ deg²_side) space.
+
+    ``w_u2`` is int32 (side ids fit it; the reference keeps int64), and
+    the first endpoints are enumerated in blocks of about ``block``
+    candidate wedges, so the host holds the int32 result and one block's
+    int64 temporaries rather than several int64 arrays of the full
+    size."""
+    off, nbr, _ = _csr(g)
+    n_side = g.n_u if side == 0 else g.n_v
+    base = 0 if side == 0 else g.n_u
+    # candidates per first endpoint, u2 == u1 included: an upper bound
+    # on its row, so the output is allocated once
+    cand = _level2_totals(off, nbr, base, n_side)
+    out = np.empty(int(cand.sum()), dtype=np.int32)
+    rows = np.zeros(n_side, dtype=np.int64)
+    vb, _ = greedy_vertex_blocks(cand, n_side, target=block)
+    w = 0
+    for lo, hi in zip(vb[:-1], vb[1:]):
+        ids = np.arange(lo, hi) + base
+        deg1 = off[ids + 1] - off[ids]
+        u1_rep = np.repeat(np.arange(lo, hi), deg1)
+        v_rep = nbr[_ranges(off[ids], deg1)]
+        deg2 = off[v_rep + 1] - off[v_rep]
+        w_u1 = np.repeat(u1_rep, deg2)
+        w_u2 = nbr[_ranges(off[v_rep], deg2)] - base
+        keep = w_u2 != w_u1
+        kept = w_u2[keep]
+        out[w: w + kept.size] = kept
+        w += kept.size
+        rows[lo:hi] = np.bincount(w_u1[keep] - lo, minlength=hi - lo)
+    woff = np.zeros(n_side + 1, dtype=np.int64)
+    np.cumsum(rows, out=woff[1:])
+    return woff, out[:w]
 
 
 def _group_ends(keys: torch.Tensor, sent: int):
@@ -267,18 +330,22 @@ def _host_subtract_frontier(b_dev, u1_w, u2_w, n_side, aggregation,
                             hash_bits, tile_cap):
     """Host-engine frontier subtract: stream the round's (ascending-u1)
     wedge pairs to the device in u1-aligned tiles of at most
-    ``tile_cap`` pairs (a vertex above it gets a tile of its own)."""
-    run_ends = np.flatnonzero(np.diff(u1_w)) + 1
-    row_off = np.concatenate([[0], run_ends, [u1_w.size]])
-    vb, _ = greedy_vertex_blocks(np.diff(row_off), row_off.size - 1,
-                                 target=tile_cap)
-    bounds = row_off[vb]
+    ``tile_cap`` pairs (a vertex above it gets a tile of its own), or,
+    with ``tile_cap=None`` (``subtract="materialize"``), as one block."""
+    if tile_cap is None:
+        bounds = np.array([0, u1_w.size], dtype=np.int64)
+    else:
+        run_ends = np.flatnonzero(np.diff(u1_w)) + 1
+        row_off = np.concatenate([[0], run_ends, [u1_w.size]])
+        vb, _ = greedy_vertex_blocks(np.diff(row_off), row_off.size - 1,
+                                     target=tile_cap)
+        bounds = row_off[vb]
     dev = b_dev.device
     for ws, we in zip(bounds[:-1], bounds[1:]):
         if we == ws:
             continue
         u1 = torch.as_tensor(u1_w[ws:we], device=dev)
-        u2 = torch.as_tensor(u2_w[ws:we], device=dev)
+        u2 = torch.as_tensor(u2_w[ws:we], device=dev).long()
         valid = torch.ones(int(we - ws), dtype=torch.bool, device=dev)
         b_dev, _, _ = _subtract_tile(
             u1, u2, valid, b_dev, None, aggregation=aggregation,
@@ -302,23 +369,35 @@ def _result(st, side) -> PeelResult:
                       sub_rounds=st.subr)
 
 
+def _tip_tile_cap(tb: int, total: int, max_row: int, floor: int) -> int:
+    """Fused tip tile: the target, but at least ``floor`` times the
+    largest single-vertex expansion (the alignment floor)."""
+    return _pow2_pad(max(min(tb, max(total, 1)), floor * max_row))
+
+
 # ---------------------------------------------------------------------------
-# Device tip engine (PEEL-V): 2-hop frontier expansion on the device
+# Device tip engine (PEEL-V / WPEEL-V): frontier expansion on the device
 # ---------------------------------------------------------------------------
 
 
-def _peel_tips_device_run(g, counts, side, aggregation, max_frontier,
-                          hash_bits, csr, *, decrease_key="bucket",
+def _peel_tips_device_run(g, counts, side, aggregation, stored, max_frontier,
+                          hash_bits, csr, *, subtract="fused",
+                          decrease_key="bucket", capacity_schedule="fixed",
                           tile_budget=None, w2=None, peel_mode="exact",
-                          budget_shrinks=0, note=None, syncs=None,
+                          budget_shrinks=0, note=None, audit=None,
                           device=None) -> Optional[PeelResult]:
-    """Plan and run the device tip loop. Returns None when the device
-    engine does not apply (empty side, counts or totals beyond int32) or
-    a round's level-1 frontier exceeded its ``max_frontier`` budget:
-    the ladder then descends to the host engine, reusing ``csr`` and
-    ``w2``. ``budget_shrinks`` halves the budgets that many times (the
-    ladder's RESOURCE_EXHAUSTED re-entry). The loop's host syncs are
-    appended to ``syncs``."""
+    """Plan and run the device tip loop: PEEL-V's 2-hop expansion from
+    the graph CSR ``csr = (off, nbr)``, or with ``stored`` WPEEL-V's
+    lookup in the stored-wedge CSR ``csr = (woff, w_u2)``.
+
+    Returns None when the device engine does not apply (empty side,
+    counts or totals beyond int32) or a round's frontier exceeded a
+    ``max_frontier``-derived capacity (PEEL-V's level 1; under
+    ``subtract="materialize"`` the whole frontier): the ladder then
+    descends to the host engine, reusing ``csr`` and ``w2``.
+    ``budget_shrinks`` halves the budgets that many times (the ladder's
+    RESOURCE_EXHAUSTED re-entry). The loop's ``(host syncs, segments,
+    largest frontier)`` are appended to ``audit``."""
     note = [] if note is None else note
     n_side = g.n_u if side == 0 else g.n_v
     base = 0 if side == 0 else g.n_u
@@ -327,74 +406,115 @@ def _peel_tips_device_run(g, counts, side, aggregation, max_frontier,
                     "beyond int32")
         return None
     budget, tb = _budgets(max_frontier, tile_budget, budget_shrinks)
-    off, nbr = csr
-    deg = np.diff(off)
-    if w2 is None:
-        w2 = _level2_totals(off, nbr, base, n_side)
-    lvl1 = int(deg[base: base + n_side].sum())
-    lvl2 = int(w2.sum())
-    if lvl2 >= _I32_MAX or 2 * g.m >= _I32_MAX:
-        note.append("device engine unavailable: expansion totals beyond "
-                    "int32 indexing")
-        return None
-    cap1 = _pow2_pad(min(lvl1, budget))
-    # a tile must hold the largest single-vertex expansion (the
-    # alignment floor); the 2x headroom keeps greedy tiles half full
-    tile_cap = _pow2_pad(max(min(tb, max(lvl2, 1)),
-                             2 * int(w2.max(initial=0))))
+    if stored:
+        woff, w_u2 = csr
+        lvl1, lvl2 = 0, int(woff[-1])
+        if lvl2 >= _I32_MAX:
+            note.append("device engine unavailable: stored wedge total "
+                        "beyond int32 indexing")
+            return None
+        work1, work2 = np.zeros(n_side, np.int64), np.diff(woff)
+        off_d = torch.as_tensor(woff, device=device)
+        # the stored wedges go up as they are, 4 bytes each
+        nbr_d = torch.as_tensor(w_u2, device=device)
+    else:
+        off, nbr = csr
+        deg = np.diff(off)
+        if w2 is None:
+            w2 = _level2_totals(off, nbr, base, n_side)
+        lvl1 = int(deg[base: base + n_side].sum())
+        lvl2 = int(w2.sum())
+        if lvl2 >= _I32_MAX or 2 * g.m >= _I32_MAX:
+            note.append("device engine unavailable: expansion totals "
+                        "beyond int32 indexing")
+            return None
+        work1, work2 = deg[base: base + n_side], w2
+        off_d = torch.as_tensor(off, device=device)
+        nbr_d = torch.as_tensor(nbr, device=device)
+        deg_d = torch.as_tensor(deg, device=device)
+    # level-1 and level-2 (or stored) frontier sizes per vertex
+    work = torch.stack([torch.as_tensor(work1, device=device),
+                        torch.as_tensor(work2, device=device)])
+    materialize = subtract == "materialize"
+    adaptive = capacity_schedule == "adaptive"
+    caps = {"cap1": 128 if stored else _pow2_pad(min(lvl1, budget)),
+            "cap2": _pow2_pad(min(lvl2, budget))}
+    # a fused tile holds the largest single-vertex expansion; the 2x
+    # headroom keeps greedy tiles half full
+    tile_cap = _tip_tile_cap(tb, lvl2, int(work2.max(initial=0)), 2)
     want_hist = peel_mode == "range" and decrease_key == "bucket"
-    off_d = torch.as_tensor(off, device=device)
-    nbr_d = torch.as_tensor(nbr, device=device)
-    deg_d = torch.as_tensor(deg, device=device)
-    w2_d = torch.as_tensor(w2, device=device)
-    # per-vertex frontier sizes: level-1 slots and level-2 wedges
-    work = torch.stack([deg_d[base: base + n_side], w2_d])
 
     def expand(st, peel, alive_prev, n_peel, tot):
         total1, total2 = tot
-        if total1 > cap1:
+        if ((not stored and total1 > caps["cap1"])
+                or (materialize and total2 > caps["cap2"])):
             return st.b, True, None, None
         alive = st.alive
         ids = _compact(peel, n_peel)
-        # level 1: peeled u1 -> centers v (materialized, at most m)
-        ga = ids + base
-        seg1, pos1, _, _ = expand_ragged(off_d[ga], deg_d[ga], total1)
-        u1_rep = ids[seg1]
-        v = nbr_d[pos1]
-        # level 2: centers v -> endpoints u2, streamed through tiles
-        roff2 = _prefix(deg_d[v])
-        starts2 = off_d[v]
-        roff_u = None
-        if total2 > tile_cap:
-            roff_u = np.asarray(_fetch(st, [_prefix(w2_d[ids])]))
+        if stored:
+            # one stored-wedge row per peeled vertex
+            u1_of, starts2 = ids, off_d[ids]
+            roff2 = _prefix(off_d[ids + 1] - starts2)
+        else:
+            # level 1: peeled u1 -> centers v (materialized, at most m)
+            ga = ids + base
+            seg1, pos1, _, _ = expand_ragged(off_d[ga], deg_d[ga], total1)
+            u1_of, v = ids[seg1], nbr_d[pos1]
+            # level 2: centers v -> endpoints u2
+            roff2, starts2 = _prefix(deg_d[v]), off_d[v]
+        if materialize:
+            bounds = [(0, total2)] if total2 else []
+        else:
+            roff_u = None
+            if total2 > tile_cap:
+                # tiles cut at peeled-vertex boundaries, planned on the
+                # host from the per-u1 frontier prefix
+                roff_u = np.asarray(_fetch(
+                    st, [roff2 if stored else _prefix(work[1][ids])]))
+            bounds = _tile_bounds(total2, tile_cap, roff_u)
 
         def tile_fn(bt, ts, te):
             wid = torch.arange(ts, te, device=bt.device)
             seg2, pos2 = ragged_slots_at(roff2, starts2, wid)
-            u2 = nbr_d[pos2] - base
+            u2 = nbr_d[pos2].long() - (0 if stored else base)
             return _subtract_tile(
-                u1_rep[seg2], u2, alive[u2], bt, alive,
+                u1_of[seg2], u2, alive[u2], bt, alive,
                 aggregation=aggregation, n_side=n_side, hash_bits=hash_bits,
                 decrease_key=decrease_key, want_hist=want_hist,
             )
 
-        b, mn, hist = _stream_tiles(
-            st.b, alive, _tile_bounds(total2, tile_cap, roff_u), tile_fn,
-            decrease_key=decrease_key, want_hist=want_hist,
-        )
+        b, mn, hist = _stream_tiles(st.b, alive, bounds, tile_fn,
+                                    decrease_key=decrease_key,
+                                    want_hist=want_hist)
         return b, False, mn, hist
+
+    def shrink_caps():
+        if not adaptive:
+            return ()
+        out = [(caps["cap2"], 1)] if materialize else []
+        if not stored:
+            out.append((caps["cap1"], 0))
+        return tuple(out)
+
+    def update_caps(st):
+        # geometric shrink: re-enter with pow2-tightened capacities
+        if not stored:
+            caps["cap1"] = min(caps["cap1"], _pow2_pad(st.rem[0]))
+        if materialize:
+            caps["cap2"] = min(caps["cap2"], _pow2_pad(st.rem[1]))
 
     b0 = torch.tensor(counts, device=device)
     state = _init_state(b0, n_side, decrease_key=decrease_key,
-                        peel_mode=peel_mode)
+                        peel_mode=peel_mode, lvl1=lvl1, lvl2=lvl2)
     st = _drive_segments(
         lambda s: _device_round_loop(s, expand, work,
                                      decrease_key=decrease_key,
-                                     peel_mode=peel_mode),
-        state,
+                                     peel_mode=peel_mode,
+                                     shrink_caps=shrink_caps()),
+        state, adaptive, update_caps,
     )
-    if syncs is not None:
-        syncs.append(state.syncs)
+    if audit is not None:
+        audit.append((state.syncs, state.segments, state.lanes))
     if st is None:
         note.append(f"bounded frontier buffer overflow (max_frontier "
                     f"budget {budget})")
@@ -402,18 +522,20 @@ def _peel_tips_device_run(g, counts, side, aggregation, max_frontier,
     return _result(st, side)
 
 
-def _peel_tips_host(g, counts, side, aggregation, hash_bits, tile_budget,
-                    peel_mode, off, nbr, w2, device,
-                    syncs=None) -> PeelResult:
-    """Host tip round loop (PEEL-V's bottom rung): whole-frontier 2-hop
-    wedge enumeration in numpy with the shared tile subtract on the
-    device; one counted fetch of the counts per round."""
-    n_side = g.n_u if side == 0 else g.n_v
-    base = 0 if side == 0 else g.n_u
-    tb = _DEFAULT_TILE_TARGET if tile_budget is None else int(tile_budget)
-    tile_cap = _pow2_pad(
-        max(min(tb, max(int(w2.sum()), 1)), int(w2.max(initial=0)))
-    )
+def _peel_tips_host(counts, side, n_side, frontier, work, aggregation,
+                    hash_bits, subtract, tile_budget, peel_mode, device,
+                    audit=None) -> PeelResult:
+    """Host tip round loop (the bottom rung of PEEL-V and WPEEL-V): one
+    counted fetch of the counts per round, the round's frontier wedge
+    pairs from ``frontier(a_ids) -> (u1_w, u2_w)`` in numpy (ascending
+    u1; ``work`` holds each vertex's frontier size), and the shared
+    tile subtract on the device: u1-aligned tiles, or under
+    ``subtract="materialize"`` one block."""
+    tile_cap = None
+    if subtract == "fused":
+        tb = _budgets(None, tile_budget, 0)[1]
+        tile_cap = _tip_tile_cap(tb, int(work.sum()),
+                                 int(work.max(initial=0)), 1)
     alive = np.ones(n_side, dtype=bool)
     tip = np.zeros(n_side, dtype=counts.dtype)
     b_dev = torch.tensor(counts, device=device)
@@ -432,23 +554,42 @@ def _peel_tips_host(g, counts, side, aggregation, hash_bits, tile_budget,
         acct.peeled(a_ids.size)
         if not alive.any():
             break
-        # -- wedge enumeration from the peeled set (GET-V-WEDGES) --
-        ga = a_ids + base
-        deg1 = off[ga + 1] - off[ga]
-        u1_rep = np.repeat(a_ids, deg1)
-        v_rep = nbr[_ranges(off[ga], deg1)]
-        deg2 = off[v_rep + 1] - off[v_rep]
-        u1_w = np.repeat(u1_rep, deg2)
-        u2_w = nbr[_ranges(off[v_rep], deg2)] - base
+        u1_w, u2_w = frontier(a_ids)
         ok = alive[u2_w]  # keep wedges whose second endpoint is alive
         u1_w, u2_w = u1_w[ok], u2_w[ok]
         if u1_w.size == 0:
             continue
         b_dev = _host_subtract_frontier(b_dev, u1_w, u2_w, n_side,
                                         aggregation, hash_bits, tile_cap)
-    if syncs is not None:
-        syncs.append(acct.syncs)
+    if audit is not None:
+        audit.append((acct.syncs, 0, 0))
     return acct.result(tip, side)
+
+
+def _two_hop_frontier(off, nbr, base):
+    """PEEL-V's frontier (GET-V-WEDGES): 2-hop re-enumeration from the
+    peeled set."""
+
+    def frontier(a_ids):
+        ga = a_ids + base
+        deg1 = off[ga + 1] - off[ga]
+        u1_rep = np.repeat(a_ids, deg1)
+        v_rep = nbr[_ranges(off[ga], deg1)]
+        deg2 = off[v_rep + 1] - off[v_rep]
+        return (np.repeat(u1_rep, deg2),
+                nbr[_ranges(off[v_rep], deg2)] - base)
+
+    return frontier
+
+
+def _stored_frontier(woff, w_u2):
+    """WPEEL-V's frontier: stored-wedge CSR lookup."""
+
+    def frontier(a_ids):
+        lens = woff[a_ids + 1] - woff[a_ids]
+        return np.repeat(a_ids, lens), w_u2[_ranges(woff[a_ids], lens)]
+
+    return frontier
 
 
 def _check_engine(engine: str) -> None:
@@ -484,12 +625,6 @@ def _check_knobs(aggregation: str, subtract: str, decrease_key: str,
     if peel_mode not in PEEL_MODES:
         raise ValueError(
             f"peel_mode must be {'|'.join(PEEL_MODES)}, got {peel_mode}"
-        )
-    if subtract != "fused":
-        raise NotImplementedError(f"subtract={subtract!r} is {_NOT_PORTED}")
-    if capacity_schedule != "fixed":
-        raise NotImplementedError(
-            f"capacity_schedule={capacity_schedule!r} is {_NOT_PORTED}"
         )
     for name, value in dict(distributed).items():
         if value is not None:
@@ -571,11 +706,21 @@ def _capacity(max_frontier, tile_budget) -> tuple:
     )
 
 
-def _run_ladder(kind, policy, rungs, counts, plan, syncs):
+def _run_ladder(kind, policy, rungs, counts, plan, audit):
+    """Run the rungs and record on the report what the round loops
+    counted: host syncs and capacity segments summed over the attempts,
+    and the largest round frontier."""
     out, report = _execute_ladder(kind, policy, rungs,
                                   _peel_validator(counts), plan=plan)
-    report.host_syncs = sum(syncs)
+    report.host_syncs = sum(a[0] for a in audit)
+    report.segments = sum(a[1] for a in audit)
+    report.frontier_lanes = max((a[2] for a in audit), default=0)
     return policy.attach(out, report)
+
+
+def _distributed_knobs(devices, checkpoint, round_deadline_s, deadline_s):
+    return dict(devices=devices, checkpoint=checkpoint,
+                round_deadline_s=round_deadline_s, deadline_s=deadline_s)
 
 
 def peel_tips(
@@ -608,19 +753,21 @@ def peel_tips(
     loop on the device with the ``bucket_update`` (``decrease_key=
     "bucket"``) or ``bucket_min`` (``"scatter"``) kernel; the host
     engine is always the ladder's bottom rung. ``max_frontier`` bounds
-    the device engine's level-1 frontier (overflow descends to host);
-    ``hash_bits`` sizes the hash aggregation's table; ``tile_budget``,
-    ``peel_mode`` and the rest as in the module docstring. Every knob
-    combination gives the same numbers. ``resilience`` selects the
-    degradation policy; ``result.report`` records the rung path and
-    ``report.host_syncs``. ``device=None`` means CUDA; pass
+    the device engine's level-1 frontier, and under
+    ``subtract="materialize"`` its whole frontier (overflow descends to
+    host); ``hash_bits`` sizes the hash aggregation's table;
+    ``subtract``, ``capacity_schedule``, ``tile_budget``, ``peel_mode``
+    and the rest as in the module docstring. Every knob combination
+    gives the same numbers. ``resilience`` selects the degradation
+    policy; ``result.report`` records the rung path,
+    ``report.host_syncs``, ``report.segments`` and
+    ``report.frontier_lanes``. ``device=None`` means CUDA; pass
     ``device="cpu"`` for the host.
     """
     _check_engine(engine)
     _check_knobs(aggregation, subtract, decrease_key, capacity_schedule,
-                 peel_mode, dict(devices=devices, checkpoint=checkpoint,
-                                 round_deadline_s=round_deadline_s,
-                                 deadline_s=deadline_s))
+                 peel_mode, _distributed_knobs(devices, checkpoint,
+                                               round_deadline_s, deadline_s))
     device = resolve_device(device)
     policy = _res.resolve_policy(resilience)
     hash_bits = _faults.hash_bits_override("peel_tips", hash_bits)
@@ -631,7 +778,7 @@ def peel_tips(
     # shared by the device planner and the host tile plan, so a
     # device -> host descent never recomputes them
     w2 = _level2_totals(off, nbr, base, n_side)
-    syncs: list = []
+    audit: list = []
 
     def run_device(shrinks: int):
         _faults.maybe_oom("peel_tips.device")
@@ -641,19 +788,21 @@ def peel_tips(
                                  torch.from_numpy(counts)).numpy()
         notes: list = []
         res = _peel_tips_device_run(
-            g, c, side, aggregation, mf, hash_bits, (off, nbr),
-            decrease_key=decrease_key, tile_budget=tile_budget, w2=w2,
-            peel_mode=peel_mode, budget_shrinks=shrinks, note=notes,
-            syncs=syncs, device=device,
+            g, c, side, aggregation, False, mf, hash_bits, (off, nbr),
+            subtract=subtract, decrease_key=decrease_key,
+            capacity_schedule=capacity_schedule, tile_budget=tile_budget,
+            w2=w2, peel_mode=peel_mode, budget_shrinks=shrinks, note=notes,
+            audit=audit, device=device,
         )
         return _res.require_rung(res, notes)
 
     def run_host(shrinks: int):
         _faults.maybe_oom("peel_tips.host")
         _faults.maybe_slow_rung("peel_tips.host")
-        return _peel_tips_host(g, counts, side, aggregation, hash_bits,
-                               tile_budget, peel_mode, off, nbr, w2, device,
-                               syncs)
+        return _peel_tips_host(counts, side, n_side,
+                               _two_hop_frontier(off, nbr, base), w2,
+                               aggregation, hash_bits, subtract, tile_budget,
+                               peel_mode, device, audit)
 
     plan = _plan_peel(
         "peel_tips", expansion="peel_tips_2hop", engine=engine,
@@ -664,7 +813,92 @@ def peel_tips(
     rungs = [_res.Rung("host", run_host, shrinkable=False)]
     if engine == "device":
         rungs.insert(0, _res.Rung("device", run_device))
-    return _run_ladder("peel_tips", policy, rungs, counts, plan, syncs)
+    return _run_ladder("peel_tips", policy, rungs, counts, plan, audit)
+
+
+def peel_tips_stored(
+    g: BipartiteGraph,
+    counts: Optional[np.ndarray] = None,
+    side: Optional[int] = None,
+    aggregation: str = "sort",
+    count_kwargs: Optional[dict] = None,
+    engine: str = "host",
+    max_frontier: Optional[int] = None,
+    hash_bits: Optional[int] = None,
+    subtract: str = "fused",
+    decrease_key: str = "bucket",
+    capacity_schedule: str = "fixed",
+    tile_budget: Optional[int] = None,
+    peel_mode: str = "exact",
+    devices=None,
+    checkpoint=None,
+    round_deadline_s: Optional[float] = None,
+    deadline_s: Optional[float] = None,
+    resilience=None,
+    device=None,
+) -> PeelResult:
+    """WPEEL-V (paper Alg. 7): store all side-oriented wedges up front
+    (``_stored_wedge_csr``, O(Σ deg²_side) space), then subtract each
+    round by index lookups instead of a 2-hop re-enumeration: the
+    paper's work/space trade-off. One orientation suffices: every
+    butterfly on the peeled side is accounted by its wedge group at
+    that side's endpoints (Lemma 4.2).
+
+    Knobs as in :func:`peel_tips`. Under ``subtract="fused"`` the
+    device engine recovers each tile straight from the stored-wedge CSR
+    (no per-round frontier buffer), so ``max_frontier`` and capacity
+    overflow only apply to ``subtract="materialize"``. The device engine
+    holds the stored wedges on the card as int32, 4 bytes each.
+    """
+    _check_engine(engine)
+    _check_knobs(aggregation, subtract, decrease_key, capacity_schedule,
+                 peel_mode, _distributed_knobs(devices, checkpoint,
+                                               round_deadline_s, deadline_s))
+    device = resolve_device(device)
+    policy = _res.resolve_policy(resilience)
+    hash_bits = _faults.hash_bits_override("peel_tips_stored", hash_bits)
+    side, counts = _side_and_counts(g, counts, side, count_kwargs, device)
+    n_side = g.n_u if side == 0 else g.n_v
+    woff, w_u2 = _stored_wedge_csr(g, side)
+    audit: list = []
+
+    def run_device(shrinks: int):
+        _faults.maybe_oom("peel_tips_stored.device")
+        _faults.maybe_slow_rung("peel_tips_stored.device")
+        mf = _faults.capacity_override("peel_tips_stored.device",
+                                       max_frontier)
+        c = _faults.maybe_poison("peel_tips_stored.device",
+                                 torch.from_numpy(counts)).numpy()
+        notes: list = []
+        res = _peel_tips_device_run(
+            g, c, side, aggregation, True, mf, hash_bits, (woff, w_u2),
+            subtract=subtract, decrease_key=decrease_key,
+            capacity_schedule=capacity_schedule, tile_budget=tile_budget,
+            peel_mode=peel_mode, budget_shrinks=shrinks, note=notes,
+            audit=audit, device=device,
+        )
+        return _res.require_rung(res, notes)
+
+    def run_host(shrinks: int):
+        _faults.maybe_oom("peel_tips_stored.host")
+        _faults.maybe_slow_rung("peel_tips_stored.host")
+        return _peel_tips_host(counts, side, n_side,
+                               _stored_frontier(woff, w_u2), np.diff(woff),
+                               aggregation, hash_bits, subtract, tile_budget,
+                               peel_mode, device, audit)
+
+    plan = _plan_peel(
+        "peel_tips_stored", expansion="peel_tips_stored", engine=engine,
+        aggregation=aggregation, n_out=n_side, dtype=counts.dtype.name,
+        capacity=_capacity(max_frontier, tile_budget)
+        + (("stored_wedges", int(woff[-1])),),
+        hash_bits=hash_bits, entity_work=np.diff(woff),
+    )
+    rungs = [_res.Rung("host", run_host, shrinkable=False)]
+    if engine == "device":
+        rungs.insert(0, _res.Rung("device", run_device))
+    return _run_ladder("peel_tips_stored", policy, rungs, counts, plan,
+                       audit)
 
 
 # ---------------------------------------------------------------------------
@@ -690,14 +924,18 @@ def _wing_work_totals(g: BipartiteGraph, off: np.ndarray, nbr: np.ndarray):
     return eu, ev, l1, l2
 
 
-def _peel_wings_device_run(g, counts, aggregation, hash_bits, csr, *,
-                           decrease_key="bucket", tile_budget=None,
+def _peel_wings_device_run(g, counts, aggregation, max_frontier, hash_bits,
+                           csr, *, subtract="fused", decrease_key="bucket",
+                           capacity_schedule="fixed", tile_budget=None,
                            peel_mode="exact", budget_shrinks=0, note=None,
-                           w_totals=None, syncs=None,
+                           w_totals=None, audit=None,
                            device=None) -> Optional[PeelResult]:
     """Plan and run the device wing loop. Returns None when the device
     engine does not apply (no edges, counts or expansion totals beyond
-    int32); the ladder then descends to the host loop.
+    int32) or, under ``subtract="materialize"``, a round's frontier
+    exceeded a ``max_frontier``-derived capacity; the ladder then
+    descends to the host loop. The loop's ``(host syncs, segments,
+    largest frontier)`` are appended to ``audit``.
 
     A round's flat triple space is the prefix of the static per-edge
     totals ``l2`` over the peel set. A flat id inverts in O(log) per
@@ -708,7 +946,14 @@ def _peel_wings_device_run(g, counts, aggregation, hash_bits, csr, *,
     binary search), and every later candidate scans exactly ``deg(u1)``
     centers (one division). Each binary search is one
     ``torch.searchsorted`` over a globally sorted key (the row id times
-    a stride plus the in-row value), so no ragged search loop runs."""
+    a stride plus the in-row value), so no ragged search loop runs.
+    ``subtract="fused"`` streams that space in tiles of ``tile_cap``
+    lanes; ``"materialize"`` takes the whole of it as one tile. Its
+    capacities bound what the reference's materializing buffers hold:
+    the level-1 candidates (``l1`` over the peel set) and the level-2
+    scans of the candidates that survive the presence test, which the
+    loop counts on the device (one more sync) only when the round's
+    triple space exceeds that capacity."""
     note = [] if note is None else note
     off, nbr, uid = csr
     m, n = g.m, g.n
@@ -722,17 +967,22 @@ def _peel_wings_device_run(g, counts, aggregation, hash_bits, csr, *,
     eu, ev, l1, l2 = (
         _wing_work_totals(g, off, nbr) if w_totals is None else w_totals
     )
-    lvl2 = int(l2.sum())
-    if int(l1.sum()) >= _I32_MAX or lvl2 >= _I32_MAX:
+    lvl1, lvl2 = int(l1.sum()), int(l2.sum())
+    if lvl1 >= _I32_MAX or lvl2 >= _I32_MAX:
         note.append("device engine unavailable: expansion totals beyond "
                     "int32 indexing")
         return None
+    materialize = subtract == "materialize"
+    adaptive = capacity_schedule == "adaptive"
     nbr_ds, uid_ds, degs_ds, cumdeg = degree_sorted_csr(off, nbr, uid)
-    if cumdeg.size and int((cumdeg + degs_ds).max(initial=0)) >= _I32_MAX:
+    if (not materialize and cumdeg.size
+            and int((cumdeg + degs_ds).max(initial=0)) >= _I32_MAX):
         note.append("device engine unavailable: degree-sorted prefixes "
                     "beyond int32 indexing")
         return None
-    _, tb = _budgets(None, tile_budget, budget_shrinks)
+    budget, tb = _budgets(max_frontier, tile_budget, budget_shrinks)
+    caps = {"cap1": _pow2_pad(min(lvl1, budget)),
+            "cap2": _pow2_pad(min(lvl2, budget))}
     tile_cap = _pow2_pad(min(tb, max(lvl2, 1)))
     want_hist = peel_mode == "range" and decrease_key == "bucket"
     deg = np.diff(off)
@@ -744,7 +994,7 @@ def _peel_wings_device_run(g, counts, aggregation, hash_bits, csr, *,
                                device=device)
 
     off_d, nbr_d, uid_d, deg_d = dev(off), dev(nbr), dev(uid), dev(deg)
-    eu_d, ev_d, l2_d = dev(eu), dev(ev), dev(l2)
+    eu_d, ev_d = dev(eu), dev(ev)
     nbr_ds_d, uid_ds_d = dev(nbr_ds), dev(uid_ds)
     # globally sorted search keys: CSR membership (row, neighbor), the
     # degree split (row, neighbor degree) and the global exclusive
@@ -754,16 +1004,27 @@ def _peel_wings_device_run(g, counts, aggregation, hash_bits, csr, *,
     gpre_d = dev(np.concatenate([[0], np.cumsum(degs_ds)]))
     slot_max = 2 * m - 1
 
-    work = l2_d.reshape(1, -1)  # per-edge triple-space sizes
+    # per-edge level-1 candidates and triple-space sizes
+    work = torch.stack([dev(l1), dev(l2)])
 
     def expand(st, peel, alive_prev, n_peel, tot):
-        (total,) = tot
+        total1, total = tot
         alive = st.alive
         ids = _compact(peel, n_peel)
-        roff = _prefix(l2_d[ids])
 
         def present(x, a):
             return alive_prev[x] & (~peel[x] | (x > a))
+
+        if materialize:
+            if total1 > caps["cap1"] or (
+                    total > caps["cap2"]
+                    and _fetch(st, [level2_total(ids, total1, present)])[0]
+                    > caps["cap2"]):
+                return st.b, True, None, None
+            bounds = [(0, total)] if total else []
+        else:
+            bounds = _tile_bounds(total, tile_cap)
+        roff = _prefix(work[1][ids])
 
         def tile_fn(bt, ts, te):
             wid = torch.arange(ts, te, device=bt.device)
@@ -818,27 +1079,56 @@ def _peel_wings_device_run(g, counts, aggregation, hash_bits, csr, *,
             )
 
         b, mn, hist = _stream_tiles(
-            st.b, alive, _tile_bounds(total, tile_cap), tile_fn,
+            st.b, alive, bounds, tile_fn,
             decrease_key=decrease_key, want_hist=want_hist,
         )
         return b, False, mn, hist
 
+    def level2_total(ids, total1, present):
+        """The reference's materialized level-2 size: per level-1
+        candidate (a, u2 in N(v1)) that is not a itself and is present,
+        min(deg(u1), deg(u2)) centers to scan."""
+        v1 = ev_d[ids]
+        seg, pos1, _, _ = expand_ragged(off_d[v1], deg_d[v1], total1)
+        a1 = ids[seg]
+        u1, u2 = eu_d[a1], nbr_d[pos1]
+        keep = (u2 != u1) & present(uid_d[pos1], a1)
+        return torch.where(keep, torch.minimum(deg_d[u1], deg_d[u2]),
+                           0).sum()
+
+    def shrink_caps():
+        if not (adaptive and materialize):
+            return ()
+        return ((caps["cap1"], 0), (caps["cap2"], 1))
+
+    def update_caps(st):
+        if materialize:
+            caps["cap1"] = min(caps["cap1"], _pow2_pad(st.rem[0]))
+            caps["cap2"] = min(caps["cap2"], _pow2_pad(st.rem[1]))
+
     b0 = torch.tensor(counts, device=device)
     state = _init_state(b0, m, decrease_key=decrease_key,
-                        peel_mode=peel_mode)
+                        peel_mode=peel_mode, lvl1=lvl1, lvl2=lvl2)
     st = _drive_segments(
         lambda s: _device_round_loop(s, expand, work,
                                      decrease_key=decrease_key,
-                                     peel_mode=peel_mode),
-        state,
+                                     peel_mode=peel_mode,
+                                     shrink_caps=shrink_caps()),
+        state, adaptive, update_caps,
     )
-    if syncs is not None:
-        syncs.append(state.syncs)
+    if audit is not None:
+        audit.append((state.syncs, state.segments, state.lanes))
+    if st is None:
+        note.append(f"bounded frontier buffer overflow (max_frontier "
+                    f"budget {budget})")
+        return None
     return _result(st, None)
 
 
+
+
 def _peel_wings_host(g, counts, off, nbr, uid, peel_mode, device,
-                     syncs=None) -> PeelResult:
+                     audit=None) -> PeelResult:
     """Host wing round loop (PEEL-E's bottom rung): per-butterfly triple
     location in numpy via min-degree-side intersections and
     binary-search edge membership, subtracted on the device. While the
@@ -930,8 +1220,8 @@ def _peel_wings_host(g, counts, off, nbr, uid, peel_mode, device,
                                device=device),
                 )
         alive[a_ids] = False
-    if syncs is not None:
-        syncs.append(acct.syncs)
+    if audit is not None:
+        audit.append((acct.syncs, 0, 0))
     return acct.result(wing, None)
 
 
@@ -965,15 +1255,15 @@ def peel_wings(
     flat ids (see ``_peel_wings_device_run``) and subtracts through
     ``bucket_update`` or a scatter. ``aggregation``/``hash_bits`` select
     the device engine's grouped edge subtract (the host engine's raw
-    triple scatter gives the same sums). ``max_frontier`` does not apply
-    to wings: the device engine keeps no frontier buffer. Other knobs as
-    in :func:`peel_tips`; every combination gives the same numbers.
+    triple scatter gives the same sums). ``max_frontier`` bounds only
+    ``subtract="materialize"``: the fused device engine keeps no
+    frontier buffer. Other knobs as in :func:`peel_tips`; every
+    combination gives the same numbers.
     """
     _check_engine(engine)
     _check_knobs(aggregation, subtract, decrease_key, capacity_schedule,
-                 peel_mode, dict(devices=devices, checkpoint=checkpoint,
-                                 round_deadline_s=round_deadline_s,
-                                 deadline_s=deadline_s))
+                 peel_mode, _distributed_knobs(devices, checkpoint,
+                                               round_deadline_s, deadline_s))
     device = resolve_device(device)
     policy = _res.resolve_policy(resilience)
     hash_bits = _faults.hash_bits_override("peel_wings", hash_bits)
@@ -986,19 +1276,21 @@ def peel_wings(
     counts = np.asarray(counts).copy()
     off, nbr, uid = _csr(g)
     w_totals = _wing_work_totals(g, off, nbr)
-    syncs: list = []
+    audit: list = []
 
     def run_device(shrinks: int):
         _faults.maybe_oom("peel_wings.device")
         _faults.maybe_slow_rung("peel_wings.device")
+        mf = _faults.capacity_override("peel_wings.device", max_frontier)
         c = _faults.maybe_poison("peel_wings.device",
                                  torch.from_numpy(counts)).numpy()
         notes: list = []
         res = _peel_wings_device_run(
-            g, c, aggregation, hash_bits, (off, nbr, uid),
-            decrease_key=decrease_key, tile_budget=tile_budget,
+            g, c, aggregation, mf, hash_bits, (off, nbr, uid),
+            subtract=subtract, decrease_key=decrease_key,
+            capacity_schedule=capacity_schedule, tile_budget=tile_budget,
             peel_mode=peel_mode, budget_shrinks=shrinks, note=notes,
-            w_totals=w_totals, syncs=syncs, device=device,
+            w_totals=w_totals, audit=audit, device=device,
         )
         return _res.require_rung(res, notes)
 
@@ -1006,7 +1298,7 @@ def peel_wings(
         _faults.maybe_oom("peel_wings.host")
         _faults.maybe_slow_rung("peel_wings.host")
         return _peel_wings_host(g, counts, off, nbr, uid, peel_mode, device,
-                                syncs)
+                                audit)
 
     plan = _plan_peel(
         "peel_wings", expansion="peel_wings_triples", engine=engine,
@@ -1017,4 +1309,4 @@ def peel_wings(
     rungs = [_res.Rung("host", run_host, shrinkable=False)]
     if engine == "device":
         rungs.insert(0, _res.Rung("device", run_device))
-    return _run_ladder("peel_wings", policy, rungs, counts, plan, syncs)
+    return _run_ladder("peel_wings", policy, rungs, counts, plan, audit)

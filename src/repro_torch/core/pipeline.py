@@ -98,6 +98,7 @@ __all__ = [
     "init_loop_state",
     "tile_bounds",
     "stream_tiles",
+    "shrink_due",
     "device_round_loop",
     "drive_segments",
     # report
@@ -116,6 +117,8 @@ DENSITY_HASH_THRESHOLD = 4.0
 EXPANSIONS = {
     "count_wedges": "flat wedge ids -> (x1, x2, y) via wedges_at",
     "peel_tips_2hop": "peeled vertices -> 2-hop wedge pairs (PEEL-V)",
+    "peel_tips_stored": "peeled vertices -> stored-wedge CSR rows "
+                        "(WPEEL-V)",
     "peel_wings_triples": "peeled edges -> butterfly edge triples via "
                           "the degree-sorted CSR (PEEL-E)",
 }
@@ -790,12 +793,18 @@ class LoopState:
     mn: Optional[torch.Tensor]  # () int32 carried min (decrease_key="bucket")
     hist: Optional[torch.Tensor]  # (NUM_BUCKETS,) carried occupancy or (0,)
     n_alive: int
+    # remaining level-1 / level-2 work: the totals over the alive
+    # entities of the two rows of the round loop's ``work`` (the adaptive
+    # capacity schedule's exit test reads them)
+    rem: list = dataclasses.field(default_factory=lambda: [0, 0])
     rounds: int = 0  # bucket rounds under range mode
     subr: int = 0  # re-settle iterations (== rounds under exact mode)
     sizes: list = dataclasses.field(default_factory=list)  # peeled per round
     hi: int = 0  # active bucket's exclusive upper bound (range mode)
     overflow: bool = False  # a planned capacity was exceeded
     syncs: int = 0  # blocking device -> host fetches
+    segments: int = 0  # capacity segments run (drive_segments)
+    lanes: int = 0  # largest round's level-2 frontier, in lanes
 
 
 def fetch(st: LoopState, values) -> list:
@@ -866,9 +875,12 @@ def apply_decrements(b, alive, tgt, dec, decrease_key: str,
 
 
 def init_loop_state(b0: torch.Tensor, n_out: int, *, decrease_key: str,
-                    peel_mode: str) -> LoopState:
+                    peel_mode: str, lvl1: int = 0,
+                    lvl2: int = 0) -> LoopState:
     """Round-0 state of :func:`device_round_loop`; ``b0`` becomes the
-    loop's own count tensor."""
+    loop's own count tensor. ``lvl1``/``lvl2`` are the whole level-1 and
+    level-2 work (the sums of ``work``'s two rows), capped below
+    INT32_MAX as the reference's int32 carry caps them."""
     dev = b0.device
     alive = torch.ones(n_out, dtype=torch.bool, device=dev)
     want_hist = peel_mode == "range" and decrease_key == "bucket"
@@ -879,6 +891,7 @@ def init_loop_state(b0: torch.Tensor, n_out: int, *, decrease_key: str,
         b=b0, alive=alive, out=torch.zeros_like(b0),
         kappa=torch.zeros((), dtype=torch.int32, device=dev), mn=mn,
         hist=hist, n_alive=int(n_out),
+        rem=[min(int(lvl1), I32_MAX - 1), min(int(lvl2), I32_MAX - 1)],
     )
 
 
@@ -914,34 +927,51 @@ def stream_tiles(b, alive, bounds, tile_fn, *, decrease_key: str,
     return b, mn, hist
 
 
+def shrink_due(st: LoopState, shrink_caps) -> bool:
+    """The adaptive schedule's exit test, the reference's: some planned
+    capacity above the 128-lane floor is at least four times the
+    remaining work it bounds. ``shrink_caps`` holds ``(cap, slot)``
+    pairs, ``slot`` indexing ``st.rem``."""
+    return any(cap > 128 and st.rem[slot] * 4 <= cap
+               for cap, slot in shrink_caps)
+
+
 def device_round_loop(st: LoopState, expand, work, *, decrease_key: str,
-                      peel_mode: str) -> LoopState:
+                      peel_mode: str, shrink_caps=()) -> LoopState:
     """The round loop shared by the tips and wings device engines:
     extract-min (carried, or the ``bucket_min`` kernel), κ update,
     exact-vs-range round accounting, peel-set selection and assignment.
 
     Each round computes on the device the masked min, κ, the peel set,
     its size, the range-mode bucket selection and the frontier totals
-    (each row of the static per-entity sizes ``work``, a ``(k, n_out)``
-    int64 tensor, summed over the peel set), and fetches them to the
-    host in ONE blocking copy (:func:`fetch`): the host then knows
-    whether to stop, how to count the round and how large the frontier
-    is, so the expansion sizes its tensors without further syncs. This
-    is where the port departs from the reference, whose whole loop is
-    one device ``while_loop`` with a single sync per decomposition.
+    (both rows of the static per-entity sizes ``work``, a ``(2, n_out)``
+    int64 tensor of level-1 and level-2 sizes, summed over the peel
+    set), and fetches them to the host in ONE blocking copy
+    (:func:`fetch`): the host then knows whether to stop, how to count
+    the round and how large the frontier is, so the expansion sizes its
+    tensors without further syncs. This is where the port departs from
+    the reference, whose whole loop is one device ``while_loop`` with a
+    single sync per capacity segment.
 
     ``expand(st, peel, alive_prev, n_peel, totals) -> (b, overflow, mn,
     hist)`` turns the round's peel set into count decrements (``totals``
-    are the host values of the frontier totals). Range
+    are the host values of the two frontier totals). Range
     mode (``peel_mode="range"``): a new bucket round starts when the
     min has left the active range ``[.., hi)``; the next range is the
     lowest non-empty geometric bucket, from the carried occupancy under
     ``decrease_key="bucket"`` and from the min's bit length otherwise
     (identical by construction). Iterations inside a bucket replay the
-    exact κ trajectory, so the numbers equal exact mode's."""
+    exact κ trajectory, so the numbers equal exact mode's.
+
+    The frontier totals also keep ``st.rem``, the remaining work. With
+    ``shrink_caps`` (the adaptive capacity schedule) the loop leaves
+    before a round where :func:`shrink_due` holds, at the reference's
+    exit point, so :func:`drive_segments` can re-enter it with smaller
+    capacities; the state carries over as it is."""
     want_hist = peel_mode == "range" and decrease_key == "bucket"
     dtype = st.b.dtype
-    while st.n_alive > 0 and not st.overflow:
+    while (st.n_alive > 0 and not st.overflow
+           and not shrink_due(st, shrink_caps)):
         if decrease_key == "bucket":
             mn = st.mn
         else:
@@ -965,6 +995,7 @@ def device_round_loop(st: LoopState, expand, work, *, decrease_key: str,
             st.rounds += 1
             st.sizes.append(0)
         st.sizes[-1] += n_peel
+        st.rem = [r - t for r, t in zip(st.rem, tot)]
         st.kappa = kappa
         st.out = torch.where(peel, kappa.to(dtype), st.out)
         alive_prev = st.alive
@@ -972,6 +1003,7 @@ def device_round_loop(st: LoopState, expand, work, *, decrease_key: str,
         st.n_alive -= n_peel
         if st.n_alive == 0:
             break  # nothing left to subtract from
+        st.lanes = max(st.lanes, tot[-1])
         b, ovf, st.mn, st.hist = expand(st, peel, alive_prev, n_peel, tot)
         if ovf:
             st.overflow = True
@@ -980,15 +1012,25 @@ def device_round_loop(st: LoopState, expand, work, *, decrease_key: str,
     return st
 
 
-def drive_segments(run, state: LoopState) -> Optional[LoopState]:
-    """Run the round loop once (the fixed capacity schedule: one
-    segment) and fetch the numbers to the host, one more counted sync.
-    Returns the final state with ``out`` as a numpy array, or None when
-    a planned capacity overflowed (callers descend to the host
-    engine)."""
-    st = run(state)
-    if st.overflow:
-        return None
+def drive_segments(run, state: LoopState, adaptive: bool = False,
+                   update_caps=None) -> Optional[LoopState]:
+    """Run the round loop by capacity segments and fetch the numbers to
+    the host, one more counted sync. Under the fixed schedule there is
+    one segment. Under the adaptive one (``adaptive=True``) a segment
+    ends where the loop's shrink test fires; ``update_caps(st)`` then
+    shrinks the planned capacities and ``run`` re-enters with them, as
+    the reference's segment loop does. Returns the final state with
+    ``out`` as a numpy array, or None when a planned capacity overflowed
+    (callers descend to the host engine)."""
+    st = state
+    while True:
+        st = run(st)
+        st.segments += 1
+        if st.overflow:
+            return None
+        if not adaptive or st.n_alive == 0:
+            break
+        update_caps(st)
     st.syncs += 1
     st.out = st.out.cpu().numpy()
     return st

@@ -267,6 +267,11 @@ class ExecutionReport:
     # blocking device -> host fetches the peeling round loops made,
     # summed over every rung attempted
     host_syncs: int = 0
+    # capacity segments the device peeling loop ran (1 under the fixed
+    # schedule; more under the adaptive one), summed over attempts
+    segments: int = 0
+    # largest level-2 frontier of one device peeling round, in lanes
+    frontier_lanes: int = 0
     wall_s: float = 0.0  # total seconds across all rung attempts
     deadline_s: Optional[float] = None  # requested budget (if any)
     deadline_slack_s: Optional[float] = None  # budget left at completion
@@ -312,6 +317,8 @@ class ExecutionReport:
             base += f" restores={self.checkpoint_restores}"
         if self.host_syncs:
             base += f" syncs={self.host_syncs}"
+        if self.segments:
+            base += f" segments={self.segments}"
         if self.wall_s:
             base += f" wall={self.wall_s:.3f}s"
         if self.deadline_slack_s is not None:

@@ -16,7 +16,12 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from repro_torch.core import count_butterflies, peel_tips, peel_wings  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    count_butterflies,
+    peel_tips,
+    peel_tips_stored,
+    peel_wings,
+)
 from repro_torch.core.graph import BipartiteGraph, preprocess  # noqa: E402
 from repro_torch.core.pipeline import (  # noqa: E402
     fused_host_inputs,
@@ -432,3 +437,70 @@ def test_peel_wings_host_on_card_launches_bucket_min(card):
     got = peel_wings(g, engine="host", device=card)
     assert ops.LAUNCHES["bucket_min"] == got.rounds > 0
     assert np.array_equal(got.numbers, want.numbers)
+
+
+@pytest.mark.parametrize("kind,knobs,kernel", [
+    ("stored", dict(decrease_key="bucket"), "bucket_update"),
+    ("stored", dict(decrease_key="scatter", subtract="materialize",
+                    capacity_schedule="adaptive"), "bucket_min"),
+    ("tips", dict(decrease_key="scatter", subtract="materialize",
+                  capacity_schedule="adaptive"), "bucket_min"),
+    ("tips", dict(decrease_key="bucket", subtract="materialize",
+                  peel_mode="range"), "bucket_update"),
+    ("tips", dict(decrease_key="bucket", capacity_schedule="adaptive"),
+     "bucket_update"),
+    ("wings", dict(decrease_key="bucket", subtract="materialize",
+                   capacity_schedule="adaptive"), "bucket_update"),
+    ("wings", dict(decrease_key="scatter", subtract="materialize"),
+     "bucket_min"),
+])
+def test_peel_new_paths_on_card_launch_and_match_cpu(card, kind, knobs,
+                                                     kernel):
+    """Stored-wedge tips, the materializing subtract and the adaptive
+    schedule on the card launch their kernel and give the CPU port's
+    numbers, rounds and capacity segments."""
+    g = powerlaw_bipartite(600, 500, 4000, seed=7)
+    fn = {"tips": peel_tips, "stored": peel_tips_stored,
+          "wings": peel_wings}[kind]
+    kw = dict(engine="device", **knobs)
+    want = fn(g, device="cpu", **kw)
+    ops.reset_launches()
+    got = fn(g, device=card, **kw)
+    assert ops.LAUNCHES[kernel] > 0
+    assert got.report.final_rung == "device" and not got.report.degraded
+    assert got.numbers.dtype == np.int64
+    assert np.array_equal(got.numbers, want.numbers)
+    assert (got.rounds, got.sub_rounds) == (want.rounds, want.sub_rounds)
+    assert np.array_equal(got.round_sizes, want.round_sizes)
+    assert got.report.segments == want.report.segments
+    assert got.report.frontier_lanes == want.report.frontier_lanes
+
+
+def test_stored_materialize_overflow_descends_on_card(card):
+    g = powerlaw_bipartite(600, 500, 4000, seed=7)
+    want = peel_tips_stored(g, device="cpu")
+    got = peel_tips_stored(g, engine="device", subtract="materialize",
+                           max_frontier=1, device=card)
+    assert [(a.rung, a.outcome) for a in got.report.attempts] == [
+        ("device", "capacity-overflow"), ("host", "ok")]
+    assert np.array_equal(got.numbers, want.numbers)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.int64])
+@pytest.mark.parametrize("cache_opt", [False, True])
+@pytest.mark.parametrize("mode", ["global", "vertex", "edge", "all"])
+@pytest.mark.parametrize("aggregation", ["batch", "batch_wa"])
+def test_batch_on_card_matches_cpu(card, aggregation, mode, cache_opt, dtype):
+    """The batch aggregations on the card (int32 and int64 counts) give
+    the CPU port's counts."""
+    g = powerlaw_bipartite(800, 600, 6000, seed=2)
+    kw = dict(mode=mode, aggregation=aggregation, cache_opt=cache_opt,
+              count_dtype=dtype, batch_rows=3)
+    want = count_butterflies(g, device="cpu", **kw)
+    got = count_butterflies(g, device=card, **kw)
+    assert got.report.final_rung == "torch"
+    for field in ("total", "per_u", "per_v", "per_edge"):
+        a, b = getattr(got, field), getattr(want, field)
+        assert (a is None) == (b is None), field
+        if b is not None:
+            assert a.dtype == b.dtype and np.array_equal(a, b), field

@@ -124,6 +124,17 @@ def test_default_count_dtype_is_int64():
 
 
 def test_unported_aggregations_raise():
+    """An aggregation neither package has is refused; the batch
+    aggregations run only on the ``torch`` engine, as the reference's
+    only on ``xla``: any other engine raises ValueError."""
     g = BipartiteGraph(10, 8, rand_edges(10, 8, 30, 0))
     with pytest.raises(ValueError, match="aggregation"):
-        count_butterflies(g, aggregation="batch", device="cpu")
+        count_butterflies(g, aggregation="bucketed", device="cpu")
+    for agg in ("batch", "batch_wa"):
+        for engine in ("cuda", "fused", "fused_cuda"):
+            with pytest.raises(ValueError, match="engine='torch'"):
+                count_butterflies(g, aggregation=agg, engine=engine,
+                                  device="cpu")
+        assert int(count_butterflies(g, aggregation=agg,
+                                     device="cpu").total) == \
+            oracle.global_count(g)

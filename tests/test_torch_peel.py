@@ -16,6 +16,8 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+import jax  # noqa: E402
+
 import repro.core.peel as ref_peel  # noqa: E402
 from repro.core import count_butterflies as ref_count  # noqa: E402
 from repro.core.pipeline import peel_tile_bounds as ref_tile_bounds  # noqa: E402
@@ -23,7 +25,12 @@ from repro.core.pipeline import plan_peel as ref_plan_peel  # noqa: E402
 from repro.core.wedges import aligned_tile_end as ref_aligned_tile_end  # noqa: E402
 from repro.core.wedges import expand_ragged as ref_expand_ragged  # noqa: E402
 from repro.data import graphs as ref_graphs  # noqa: E402
-from repro_torch.core import ResiliencePolicy, peel_tips, peel_wings  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    ResiliencePolicy,
+    peel_tips,
+    peel_tips_stored,
+    peel_wings,
+)
 from repro_torch.core import pipeline  # noqa: E402
 from repro_torch.core.wedges import aligned_tile_end, expand_ragged  # noqa: E402
 from repro_torch.data import graphs  # noqa: E402
@@ -301,20 +308,127 @@ def test_ragged_helpers_equal_reference(seed):
 
 
 def test_out_of_slice_knobs_raise(case):
+    """The distributed rung's knobs are still refused, on all three
+    entry points, naming the ROADMAP step that ports them; unknown knob
+    values are ValueErrors."""
     g = case.g
-    for kw in (dict(subtract="materialize"),
-               dict(capacity_schedule="adaptive"), dict(devices=2),
+    calls = ((peel_tips, dict(counts=case.tip_counts, side=case.side)),
+             (peel_tips_stored, dict(counts=case.tip_counts,
+                                     side=case.side)),
+             (peel_wings, dict(counts=case.wing_counts)))
+    for kw in (dict(devices=2), dict(devices="auto"),
                dict(checkpoint="ckpt"), dict(deadline_s=1.0),
                dict(round_deadline_s=1.0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            peel_tips(g, counts=case.tip_counts, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            peel_wings(g, counts=case.wing_counts, device="cpu", **kw)
+        for fn, args in calls:
+            with pytest.raises(NotImplementedError, match="step 7"):
+                fn(g, device="cpu", **args, **kw)
     with pytest.raises(ValueError, match="decrease_key"):
         peel_tips(g, counts=case.tip_counts, decrease_key="heap",
                   device="cpu")
+    with pytest.raises(ValueError, match="subtract"):
+        peel_tips_stored(g, counts=case.tip_counts, subtract="copy",
+                         device="cpu")
+    with pytest.raises(ValueError, match="capacity_schedule"):
+        peel_wings(g, counts=case.wing_counts, capacity_schedule="sometimes",
+                   device="cpu")
     with pytest.raises(ValueError, match="engine"):
         peel_wings(g, counts=case.wing_counts, engine="mesh", device="cpu")
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("schedule", ["fixed", "adaptive"])
+@pytest.mark.parametrize("subtract", ["fused", "materialize"])
+@pytest.mark.parametrize("kind", ["tips", "wings"])
+def test_subtract_schedule_match_reference(case, kind, subtract, schedule,
+                                          engine):
+    """The materializing subtract (the whole round frontier in one
+    tile) and the adaptive capacity schedule give the reference's
+    numbers, rounds and round sizes on both engines; the device engine
+    reports one capacity segment under the fixed schedule."""
+    kw = dict(engine=engine, subtract=subtract, capacity_schedule=schedule,
+              device="cpu")
+    if kind == "tips":
+        got = peel_tips(case.g, counts=case.tip_counts, side=case.side,
+                        **kw)
+        want = case.tips["exact"]
+    else:
+        got = peel_wings(case.g, counts=case.wing_counts, **kw)
+        want = case.wings["exact"]
+    assert_same(got, want)
+    assert got.report.final_rung == engine and not got.report.degraded
+    if engine == "host":
+        assert got.report.segments == 0
+    elif schedule == "fixed":
+        assert got.report.segments == 1
+
+
+def rand_graph(nu, nv, m, seed):
+    """The reference tests' seeded random graph, in both packages."""
+    rng = np.random.default_rng(seed)
+    e = np.stack([rng.integers(0, nu, m), rng.integers(0, nv, m)], axis=1)
+    return ref_graphs.BipartiteGraph(nu, nv, e), graphs.BipartiteGraph(
+        nu, nv, e)
+
+
+@pytest.mark.parametrize("schedule", ["fixed", "adaptive"])
+@pytest.mark.parametrize("subtract", ["fused", "materialize"])
+@pytest.mark.parametrize("kind", ["tips", "stored", "wings"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_segments_match_reference(seed, kind, subtract, schedule,
+                                  monkeypatch):
+    """``report.segments`` equals the number of ``jax.device_get`` calls
+    of the reference's device engine on the same call (one per capacity
+    segment, counts given), as the reference's own segment test counts
+    them on the same graph (tests/test_peeling.py), and the adaptive
+    re-entries leave the numbers alone."""
+    ref_g, g = rand_graph(30, 20, 300, seed)
+    r = ref_count(ref_g, mode="all")
+    counts = (np.asarray(r.per_u, np.int64) if kind != "wings"
+              else np.asarray(r.per_edge, np.int64))
+    fn, ref_fn, kw = {
+        "tips": (peel_tips, ref_peel.peel_tips, dict(side=0)),
+        "stored": (peel_tips_stored, ref_peel.peel_tips_stored,
+                   dict(side=0)),
+        "wings": (peel_wings, ref_peel.peel_wings, {}),
+    }[kind]
+    kw.update(counts=counts, engine="device", subtract=subtract,
+              capacity_schedule=schedule)
+    calls = []
+    orig = jax.device_get
+    monkeypatch.setattr(jax, "device_get",
+                        lambda x: (calls.append(1), orig(x))[1])
+    want = ref_fn(ref_g, **kw)
+    monkeypatch.setattr(jax, "device_get", orig)
+    got = fn(g, device="cpu", **kw)
+    assert_same(got, want)
+    assert got.report.final_rung == want.report.final_rung == "device"
+    assert got.report.segments == len(calls)
+    if schedule == "adaptive" and (kind == "tips" or subtract ==
+                                   "materialize"):
+        # a planned capacity shrank: the loop left and re-entered
+        assert got.report.segments > 1
+
+
+def test_wing_materialize_max_frontier_rungs_match_reference():
+    """Under ``subtract="materialize"`` a wing round overflows when its
+    level-1 candidates or the level-2 scans of the candidates that pass
+    the presence test exceed the ``max_frontier``-derived capacities,
+    as in the reference: across budgets, the rung that answers is the
+    reference's, and both outcomes occur."""
+    ref_g, g = rand_graph(30, 20, 300, 0)
+    r = ref_count(ref_g, mode="edge")
+    counts = np.asarray(r.per_edge, np.int64)
+    outcomes = set()
+    for budget in (1, 256, 1024, 2048, 4096, 1 << 14, 1 << 16):
+        kw = dict(counts=counts, engine="device", subtract="materialize",
+                  max_frontier=budget)
+        want = ref_peel.peel_wings(ref_g, **kw)
+        got = peel_wings(g, device="cpu", **kw)
+        assert_same(got, want)
+        path = [(a.rung, a.outcome) for a in got.report.attempts]
+        assert path == [(a.rung, a.outcome) for a in want.report.attempts]
+        outcomes.add(got.report.final_rung)
+    assert outcomes == {"device", "host"}
 
 
 def test_entry_points_default_to_the_card(case):
