@@ -51,7 +51,25 @@ Phases, each of which fails the run loudly:
      each puts exactly one device operation on the stream per call (no
      copy, memset or fill; 20 calls traced), and profile one more tip
      call to set the device's busy time beside its wall and host syncs;
-  9. print one ``{"kernels": [...]}`` line, the card line, and the final
+  9. the approximate tier and the query service, on the card at full
+     size: ``approx_count`` on the smoke graph with ``method="edges"``
+     and ``"colorful"`` (fixed ``p`` and ``reps``; one
+     ``fused_count_tiles`` launch per repetition) and ``"sample"``, each
+     equal to the pinned JAX reference
+     ``tests/data/torch_approx_reference.json``; then a
+     ``ButterflyService(device="cuda", workers=2)`` holding the smoke
+     graph and ``PEEL_TIPS``, queried serially (a global and an ``all``
+     count on ``fused_cuda`` against the pinned counts, the same global
+     query again from the cache with no launch, an ``accuracy="approx"``
+     query under a 1 us deadline answered by the ``sample`` rung with
+     the pinned estimate, the same query again after the refine-behind
+     recount with the exact pinned total, and a device tip-peeling query
+     against the pinned numbers), each query's launch counts zeroed just
+     before it and read just after, then six mixed queries at once on a
+     fresh service, each equal to its serial answer; every query prints
+     its service report and peak memory, and one more count query prints
+     how its wall splits between host steps and device time;
+ 10. print one ``{"kernels": [...]}`` line, the card line, and the final
      ``{"ok": true, "device": {...}}`` line.
 
 Every kernel row has ``ms`` (CUDA events around back-to-back calls,
@@ -83,6 +101,9 @@ import torch  # noqa: E402
 REFERENCE = os.path.join(ROOT, "tests", "data", "torch_smoke_reference.json")
 PEEL_REFERENCE = os.path.join(ROOT, "tests", "data",
                               "torch_peel_reference.json")
+APPROX_REFERENCE = os.path.join(ROOT, "tests", "data",
+                                "torch_approx_reference.json")
+APPROX_FIELDS = ("estimate", "stddev", "ci95", "p", "n_samples", "kept_m")
 GRAPH = dict(n_u=200_000, n_v=150_000, m=2_000_000, seed=7)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
@@ -767,6 +788,276 @@ def profile_peel_window(g_tips, dev, lo: int = 2000, hi: int = 3000):
         print(f"  {ms:10.3f} ms  {count:8d}x  {key[:80]}", flush=True)
 
 
+def approx_phase(g, dev, launches) -> None:
+    """Phase 9, first part: the approximate tier on the smoke graph,
+    each call against the pinned JAX reference."""
+    from repro_torch.core import approx_count
+    from repro_torch.kernels import ops
+
+    with open(APPROX_REFERENCE) as f:
+        ref = json.load(f)
+    if (ref["m"], ref["content_hash"]) != (g.m, g.content_hash()):
+        fail("the approximate-tier pin is for another graph")
+    for name, want in ref["calls"].items():
+        kw = want["kwargs"]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        r = approx_count(g, seed=ref["seed"], device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        used = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        est = r.report.estimator
+        got = dict(estimate=r.estimate, stddev=r.stddev, ci95=r.ci95, p=r.p,
+                   n_samples=r.n_samples,
+                   kept_m=(int(est.split("kept_m=")[1].split("/")[0])
+                           if "kept_m=" in est else None))
+        print(f"approx {name} {kw}: wall {wall:.3f} s, peak {peak:.3f} GiB, "
+              f"launches {used}, {got}, rungs {r.report.summary()}",
+              flush=True)
+        for field in APPROX_FIELDS:
+            if got[field] != want[field]:
+                fail(f"approx {name}: {field} {got[field]!r} differs from "
+                     f"the pinned {want[field]!r}")
+        reps = kw.get("reps", 0)
+        if used["fused_count_tiles"] != reps:
+            fail(f"approx {name}: {used['fused_count_tiles']} fused_count_tiles"
+                 f" launches for {reps} repetitions")
+        rung = "sample" if kw["method"] == "sample" else "fused_cuda"
+        if r.report.final_rung != rung or r.report.degraded:
+            fail(f"approx {name} did not finish on {rung}: "
+                 f"{r.report.summary()}")
+        for key, n in used.items():
+            launches[key] += n
+    print("approx: every estimate, stddev, ci95, p, n_samples and kept_m "
+          "equal to the pinned JAX reference", flush=True)
+
+
+def report_line(label: str, r, peak=None) -> None:
+    s = r.service
+    mem = "" if peak is None else f", peak {peak:.3f} GiB"
+    print(f"serve {label}: total {s.total_wall_s:.3f} s, queue wait "
+          f"{s.queue_wait_s:.3f} s, exec {s.exec_wall_s:.3f} s, cache "
+          f"{s.cache}, rungs {s.rungs_tried}{mem}"
+          + (f", {s.estimator}" if s.approximate else ""), flush=True)
+
+
+class HostTap:
+    """Sums the host seconds of named module functions while it is
+    entered (the functions still run as before)."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.secs = {}
+        self.orig = []
+
+    def __enter__(self):
+        for mod, name in self.targets:
+            fn = getattr(mod, name)
+            self.orig.append((mod, name, fn))
+
+            def timed(*a, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.secs[_name] = (self.secs.get(_name, 0.0)
+                                        + time.perf_counter() - t0)
+
+            setattr(mod, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.orig:
+            setattr(mod, name, fn)
+
+
+def service_split(svc, query) -> None:
+    """One more count query (a key not yet served) with its host steps
+    timed and the device's work traced: how its wall splits between the
+    host and the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import count as count_mod, pipeline
+    from repro_torch.kernels import ops
+
+    targets = [(count_mod, "device_graph"), (count_mod, "host_wedge_counts"),
+               (pipeline, "plan_count"), (ops, "fused_work")]
+    torch.cuda.synchronize()
+    with HostTap(targets) as tap, profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        r = svc.query(query)
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU) / 1e6
+    wall = r.service.exec_wall_s
+    steps = ", ".join(f"{k} {v:.3f} s" for k, v in tap.secs.items())
+    print(f"serve split {query.mode} count: exec {wall:.3f} s, device busy "
+          f"{busy:.4f} s (idle share {1 - busy / wall:.4f}); host steps: "
+          f"{steps}", flush=True)
+
+
+def wait_refined(svc, timeout_s: float = 300.0) -> None:
+    """Wait for the service's refine-behind recounts to finish."""
+    stop = time.monotonic() + timeout_s
+    while time.monotonic() < stop:
+        with svc._lock:
+            if not svc._refining:
+                return
+        time.sleep(0.05)
+    fail("the refine-behind recount did not finish")
+
+
+def service_phase(g, g_tips, dev, launches) -> None:
+    """Phase 9, second part: the query service on the card."""
+    from repro_torch.core.wedges import auto_chunk_budget
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ButterflyService, Query
+
+    with open(REFERENCE) as f:
+        ref = json.load(f)
+    with open(PEEL_REFERENCE) as f:
+        peel_ref = json.load(f)["PEEL_TIPS"]
+    with open(APPROX_REFERENCE) as f:
+        sample_ref = json.load(f)["service_sample"]
+
+    def check_counts(label, res, mode):
+        if mode in ("global", "all") and int(res.total) != ref["total"]:
+            fail(f"serve {label}: total {int(res.total)} differs from the "
+                 f"pinned {ref['total']}")
+        fields = {"vertex": ("per_u", "per_v"), "edge": ("per_edge",),
+                  "all": ("per_u", "per_v", "per_edge")}.get(mode, ())
+        for field in fields:
+            arr = getattr(res, field)
+            if arr.dtype != np.int64 or digest(arr) != ref["sha256_int64"][field]:
+                fail(f"serve {label}: {field} differs from the pinned counts")
+
+    def check_peel(label, res):
+        want = peel_ref["exact"]
+        if (digest(res.numbers) != want["sha256_int64"]
+                or (res.rounds, res.sub_rounds) != (want["rounds"],
+                                                    want["sub_rounds"])):
+            fail(f"serve {label}: tip numbers or rounds differ from the pin")
+
+    def serial(svc, label, q, expect_rung=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        r = svc.query(q)
+        torch.cuda.synchronize()
+        used = dict(ops.LAUNCHES)
+        report_line(label, r, torch.cuda.max_memory_allocated() / 2**30)
+        print(f"  launches {used}", flush=True)
+        if expect_rung is not None and (r.service.final_rung != expect_rung
+                                        or r.service.degraded):
+            fail(f"serve {label} did not finish on {expect_rung}: "
+                 f"{r.service.summary()}")
+        for name, n in used.items():
+            launches[name] += n
+        return r, used
+
+    with ButterflyService(device=dev, workers=2) as svc:
+        for key, graph in (("smoke", g), ("tips", g_tips)):
+            t0 = time.perf_counter()
+            svc.register(key, graph)
+            print(f"serve register {key}: {time.perf_counter() - t0:.3f} s "
+                  f"on the host (m={graph.m})", flush=True)
+        q = Query(graph="smoke", kind="count", mode="global")
+        r, used = serial(svc, "count global", q, "fused_cuda")
+        if used["fused_count_tiles"] != 1:
+            fail("the service's global count did not launch fused_count_tiles")
+        check_counts("count global", r.result, "global")
+        print(f"serve: the plans used auto_chunk_budget {auto_chunk_budget(dev)}"
+              f" wedges", flush=True)
+        r, used = serial(svc, "count all", Query(graph="smoke", mode="all"),
+                         "fused_cuda")
+        check_counts("count all", r.result, "all")
+        r, used = serial(svc, "count global again", q)
+        if r.service.cache != "hit" or sum(used.values()):
+            fail(f"the repeated global query was not a cache hit without "
+                 f"launches: {r.service.summary()}, {used}")
+        # the global query left the exact answer in the cache; without
+        # it the approximate query cannot be upgraded before it samples
+        svc.cache.invalidate_version(svc.registered()["smoke"])
+        qa = Query(graph="smoke", kind="count", mode="global",
+                   accuracy="approx", eps=0.1, deadline_s=1e-6,
+                   allow_stale=False)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        r = svc.query(qa)
+        report_line("count approx, 1 us deadline", r)
+        if (not r.service.approximate or r.service.final_rung != "sample"
+                or not r.service.refining):
+            fail(f"the approximate query was not answered by the sample "
+                 f"rung with a refine behind it: {r.service.summary()}")
+        for field in ("estimate", "stddev", "ci95", "n_samples"):
+            if getattr(r.result, field) != sample_ref[field]:
+                fail(f"serve approx: {field} {getattr(r.result, field)!r} "
+                     f"differs from the pinned {sample_ref[field]!r}")
+        t0 = time.perf_counter()
+        wait_refined(svc)
+        torch.cuda.synchronize()
+        used = dict(ops.LAUNCHES)
+        print(f"serve refine-behind: done {time.perf_counter() - t0:.3f} s "
+              f"after the approximate answer; launches {used}", flush=True)
+        for name, n in used.items():
+            launches[name] += n
+        r, used = serial(svc, "count approx again", qa)
+        if r.service.cache != "hit" or r.service.approximate:
+            fail(f"the approximate query was not upgraded to the exact "
+                 f"answer: {r.service.summary()}")
+        check_counts("count approx again", r.result, "global")
+        r, used = serial(svc, "peel_tips device",
+                         Query(graph="tips", kind="peel_tips",
+                               engine="device"), "device/exact")
+        if used["bucket_update"] == 0 or used["fused_count_tiles"] != 1:
+            fail(f"the service's peel query launched {used}")
+        check_peel("peel_tips device", r.result)
+        serial_peel = r.result
+        service_split(svc, Query(graph="smoke", kind="count", mode="vertex"))
+
+    # six mixed queries at once on a fresh service: each equals its
+    # serial answer (launch counts are shared by the worker threads, so
+    # only the batch's total is read)
+    mix = [Query(graph="smoke", mode="global"),
+           Query(graph="smoke", mode="vertex"),
+           Query(graph="smoke", mode="edge"),
+           Query(graph="smoke", mode="all"),
+           Query(graph="smoke", accuracy="approx"),
+           Query(graph="tips", kind="peel_tips", engine="device")]
+    with ButterflyService(device=dev, workers=2) as svc:
+        svc.register("smoke", g)
+        svc.register("tips", g_tips)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        futs = [svc.submit(q) for q in mix]
+        rs = [f.result() for f in futs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        used = dict(ops.LAUNCHES)
+        for q, r in zip(mix, rs):
+            report_line(f"concurrent {q.kind} {q.mode} {q.accuracy}", r)
+            if q.kind == "count":
+                if r.service.approximate:
+                    fail("an approximate query without a deadline came "
+                         "back approximate")
+                check_counts(f"concurrent {q.mode}", r.result, q.mode)
+            elif not np.array_equal(r.result.numbers, serial_peel.numbers):
+                fail("the concurrent peel query differs from the serial one")
+        print(f"serve concurrent: {len(mix)} queries on 2 workers in "
+              f"{wall:.3f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.3f}"
+              f" GiB, launches {used}; every answer equal to its serial "
+              f"answer", flush=True)
+        for name, n in used.items():
+            launches[name] += n
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs "
@@ -877,7 +1168,7 @@ def main() -> int:
     # -- 6. where one fused_cuda call spends its time -------------------
     phase(6)
     profile_call(g, dev, walls["fused_cuda", "sort"])
-    del g, rg, results, base
+    del rg, results, base
     torch.cuda.empty_cache()
 
     # -- 7. the peeling path ---------------------------------------------
@@ -890,8 +1181,13 @@ def main() -> int:
     del tap
     profile_peel_window(g_tips, dev)
 
-    # -- 9. report ------------------------------------------------------
+    # -- 9. the approximate tier and the query service --------------------
     phase(9)
+    approx_phase(g, dev, launches)
+    service_phase(g, g_tips, dev, launches)
+
+    # -- 10. report -----------------------------------------------------
+    phase(10)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         row = rows[name]

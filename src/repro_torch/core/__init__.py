@@ -1,7 +1,10 @@
-"""ParButterfly core: exact butterfly counting and peeling in PyTorch."""
+"""ParButterfly core: exact and approximate butterfly counting and
+peeling in PyTorch."""
 from .graph import BipartiteGraph, RankedGraph, preprocess
 from .ranking import RANKINGS, make_order, wedges_processed
 from .count import CountResult, count_butterflies, count_from_ranked
+from .approx import ApproxCount, SampleState, sample_count
+from .sparsify import approx_count, sparsify_colorful, sparsify_edges
 from .fibheap import BucketStructure, FibHeap
 from .peel import PeelResult, peel_tips, peel_tips_stored, peel_wings
 from .resilience import (
@@ -29,6 +32,12 @@ __all__ = [
     "CountResult",
     "count_butterflies",
     "count_from_ranked",
+    "ApproxCount",
+    "SampleState",
+    "sample_count",
+    "approx_count",
+    "sparsify_edges",
+    "sparsify_colorful",
     "PeelResult",
     "peel_tips",
     "peel_tips_stored",

@@ -40,9 +40,11 @@ reference pads every block to the largest).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; on a CPU tensor the kernel wrappers take their plain
-PyTorch versions. ``count_dtype=None`` counts in int32, as the
-reference does by default; ``count_dtype=torch.int64`` is always
-honoured.
+PyTorch versions. ``count_dtype=None`` returns int32 counts, as the
+reference does by default, but accumulates in int64 and refuses with
+:class:`~repro_torch.core.resilience.AccumulatorOverflowRisk` when a
+value leaves the int32 range (the reference wraps);
+``count_dtype=torch.int64`` is always honoured.
 """
 from __future__ import annotations
 
@@ -99,11 +101,22 @@ ENGINE_MAP = {
 # Degradation ladder per requested engine (ResiliencePolicy descends
 # left to right; every rung is bitwise-identical where it applies, so
 # descent changes strategy, never results).
+#
+# The "sample" entry is the approximate tier's zero-cost rung
+# (core/approx.py): NOT part of any exact ladder (an estimate is not
+# bitwise-identical to an exact count) but appended below the exact
+# rungs when a caller opts into accuracy="approx" (serve/service.py),
+# so a deadline too tight for any exact engine still gets a seeded
+# sampled answer with error bars instead of a stale result or a typed
+# failure. Estimates are explicitly marked (ApproxCount and the
+# response's approximate flag); degradation still never silently
+# changes what an *exact* answer means.
 COUNT_LADDERS = {
     "fused_cuda": ("fused_cuda", "fused", "torch"),
     "fused": ("fused", "torch"),
     "cuda": ("cuda", "torch"),
     "torch": ("torch",),
+    "sample": ("sample",),
 }
 
 
@@ -310,7 +323,40 @@ def count_from_ranked(
     _faults.maybe_oom(f"count.{engine}")
     _faults.maybe_slow_rung(f"count.{engine}")
     hash_bits = _faults.hash_bits_override(f"count.{engine}", hash_bits)
-    dtype = torch.int32 if count_dtype is None else count_dtype
+    want = torch.int32 if count_dtype is None else count_dtype
+    out = _count_ranked(
+        rg, aggregation=aggregation, mode=mode, cache_opt=cache_opt,
+        dtype=torch.int64 if want == torch.int32 else want,
+        batch_rows=batch_rows, batch_target=batch_target, engine=engine,
+        max_chunk=max_chunk, hash_bits=hash_bits, device=device,
+    )
+    return _narrow(out, want) if want == torch.int32 else out
+
+
+def _narrow(out, dtype: torch.dtype):
+    """Narrow int64 counts (a tensor or a tuple of them) to ``dtype``
+    when every value fits, in one host sync; otherwise raise
+    :class:`~repro_torch.core.resilience.AccumulatorOverflowRisk` naming
+    the largest value (the reference wraps silently)."""
+    outs = out if isinstance(out, tuple) else (out,)
+    ext = [x for t in outs if t.numel() for x in (t.max(), t.min())]
+    if ext:
+        vals = torch.stack(ext).tolist()
+        hi, lo = max(vals), min(vals)
+        info = torch.iinfo(dtype)
+        if hi > info.max or lo < info.min:
+            raise _res.AccumulatorOverflowRisk(
+                f"butterfly count {hi if hi > info.max else lo} does not "
+                f"fit the requested {dtype} counts (count_dtype=None "
+                f"means int32); pass count_dtype=torch.int64"
+            )
+    narrowed = tuple(t.to(dtype) for t in outs)
+    return narrowed if isinstance(out, tuple) else narrowed[0]
+
+
+def _count_ranked(rg, *, aggregation, mode, cache_opt, dtype, batch_rows,
+                  batch_target, engine, max_chunk, hash_bits, device):
+    """:func:`count_from_ranked` after its checks, in ``dtype``."""
     direction = "high" if cache_opt else "low"
     if aggregation == "auto" and engine not in ("fused", "fused_cuda"):
         # per-tile strategy choice needs a tile plan; the materializing
@@ -363,8 +409,8 @@ def count_validator(g: BipartiteGraph, mode: str):
     per-edge) is bounded by ``ub = C(min(w_u, w_v), 2)`` and
     non-negative. A violating rung result demotes to the next rung
     instead of being returned. When ``ub`` does not fit the result
-    dtype the engines' documented wraparound regime is in effect and
-    the check stands down."""
+    dtype the check stands down: int32 results were narrowed from int64
+    only after every value was found in range."""
     w_u, w_v = g.wedge_totals()
     w = min(w_u, w_v)
     ub = w * (w - 1) // 2

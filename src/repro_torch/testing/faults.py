@@ -40,6 +40,7 @@ __all__ = [
     "maybe_oom",
     "maybe_poison",
     "maybe_slow_rung",
+    "maybe_overload",
     "hash_bits_override",
     "capacity_override",
 ]
@@ -55,6 +56,7 @@ KINDS = (
     "hash_overflow",  # shrink the bounded-probe hash table
     "capacity_overflow",  # shrink the fused kernel's tile capacity
     "slow_rung",  # delay an engine rung's entry (deadline pressure)
+    "overload",  # delay a serving worker (fill the admission queue)
 )
 
 
@@ -174,5 +176,17 @@ def maybe_slow_rung(site: str) -> None:
     if not _active:
         return
     f = should_fire("slow_rung", site)
+    if f is not None:
+        time.sleep(float(f.params.get("delay", 0.05)))
+
+
+def maybe_overload(site: str) -> None:
+    """``overload`` fault: sleep ``delay`` seconds (default 0.05) on the
+    serving layer's worker path (site ``serve.worker``), pinning workers
+    so the bounded queue fills and the admission controller must shed
+    with a typed ``AdmissionRejected``."""
+    if not _active:
+        return
+    f = should_fire("overload", site)
     if f is not None:
         time.sleep(float(f.params.get("delay", 0.05)))

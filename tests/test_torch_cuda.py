@@ -504,3 +504,73 @@ def test_batch_on_card_matches_cpu(card, aggregation, mode, cache_opt, dtype):
         assert (a is None) == (b is None), field
         if b is not None:
             assert a.dtype == b.dtype and np.array_equal(a, b), field
+
+
+@pytest.mark.parametrize("kw", [
+    dict(method="edges", p=0.5, reps=3),
+    dict(method="colorful", p=0.3, reps=2),
+    dict(method="colorful", eps=0.2, reps=2),
+    dict(method="sample", eps=0.1),
+])
+def test_approx_count_on_card_matches_cpu(card, kw):
+    """The approximate tier on the card gives the CPU port's estimate
+    bit for bit; each sparsified repetition launches the fused kernel
+    once."""
+    from repro_torch.core import approx_count
+
+    g = powerlaw_bipartite(800, 600, 6000, seed=2)
+    want = approx_count(g, seed=4, device="cpu", **kw)
+    ops.reset_launches()
+    got = approx_count(g, seed=4, device=card, **kw)
+    for f in ("estimate", "stddev", "ci95", "p", "n_samples"):
+        assert getattr(got, f) == getattr(want, f), f
+    assert got.report.estimator == want.report.estimator
+    reps = 0 if kw["method"] == "sample" else kw["reps"]
+    assert ops.LAUNCHES["fused_count_tiles"] == reps
+
+
+def test_service_on_card_matches_cpu(card):
+    """The query service on the card: count, peel and approximate
+    queries give the CPU service's answers; a count query launches the
+    fused kernel, a device peel query its bucket kernel, and a cache hit
+    launches nothing."""
+    from repro_torch.serve import ButterflyService, Query
+
+    g1 = powerlaw_bipartite(800, 600, 6000, seed=2)
+    g2 = powerlaw_bipartite(600, 500, 4000, seed=7)
+    queries = [Query(graph="g1", mode=m)
+               for m in ("global", "vertex", "edge", "all")]
+    queries += [Query(graph="g2", kind=k, engine="device")
+                for k in ("peel_tips", "peel_tips_stored", "peel_wings")]
+    # g2's global count is not cached, so the sample rung answers
+    queries += [Query(graph="g2", accuracy="approx", deadline_s=1e-6,
+                      allow_stale=False)]
+    out = {}
+    for dev in ("cpu", card):
+        with ButterflyService(workers=1, device=dev,
+                              refine_approx=False) as svc:
+            svc.register("g1", g1)
+            svc.register("g2", g2)
+            out[str(dev)] = []
+            for q in queries:
+                ops.reset_launches()
+                r = svc.query(q)
+                out[str(dev)].append((r, dict(ops.LAUNCHES)))
+            ops.reset_launches()
+            assert svc.query(queries[0]).service.cache == "hit"
+            assert sum(ops.LAUNCHES.values()) == 0
+    assert out[str(card)][-1][0].service.final_rung == "sample"
+    for (want, _), (got, used) in zip(out["cpu"], out[str(card)]):
+        assert got.service.rungs_tried == want.service.rungs_tried
+        if got.service.approximate:
+            assert got.result.estimate == want.result.estimate
+            continue
+        for f in ("total", "per_u", "per_v", "per_edge", "numbers"):
+            a, b = getattr(got.result, f, None), getattr(want.result, f, None)
+            assert (a is None) == (b is None), f
+            if b is not None:
+                assert np.array_equal(a, b), f
+        if got.service.kind == "count":
+            assert used["fused_count_tiles"] == 1
+        else:
+            assert used["bucket_update"] > 0

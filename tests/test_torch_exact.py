@@ -1,7 +1,9 @@
 """Exactness of the port's counts beyond the parity matrix: agreement
 with the dense oracle on every engine, counts above 2^31 on K_{320,320}
 against closed forms, int64 parity with the reference package under
-x64, and the rule that an entry point never runs on the CPU unasked."""
+x64, the refusal of int32 counts that leave the int32 range (where the
+reference wraps), and the rule that an entry point never runs on the
+CPU unasked."""
 import os
 import subprocess
 import sys
@@ -10,14 +12,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import functools  # noqa: E402
+
 import jax  # noqa: E402,F401  (JAX stays on the CPU: JAX_PLATFORMS=cpu)
 import numpy as np  # noqa: E402
+
+import repro.core as ref_core  # noqa: E402
 
 from repro_torch.core import BipartiteGraph, count_butterflies  # noqa: E402
 from repro_torch.core import count as count_mod  # noqa: E402
 from repro_torch.core import oracle  # noqa: E402
 from repro_torch.core.graph import preprocess  # noqa: E402
 from repro_torch.core.ranking import make_order  # noqa: E402
+from repro_torch.core.resilience import AccumulatorOverflowRisk  # noqa: E402
 from repro_torch.data.graphs import powerlaw_bipartite  # noqa: E402
 from torch_parity import FIELDS, rand_edges  # noqa: E402
 
@@ -138,3 +145,67 @@ def test_unported_aggregations_raise():
         assert int(count_butterflies(g, aggregation=agg,
                                      device="cpu").total) == \
             oracle.global_count(g)
+
+
+# K_{2,65537}: every butterfly is the one pair of U vertices with a pair
+# of the 65,537 V vertices, C(65537, 2) = 2,147,516,416 > INT32_MAX in
+# the total and in both U counts; V and edge counts are 65,536.
+K2_B = 65537
+K2_TOTAL = K2_B * (K2_B - 1) // 2
+
+
+def _k2_edges():
+    return np.stack([np.repeat(np.arange(2), K2_B),
+                     np.tile(np.arange(K2_B), 2)], 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _k2_reference(mode):
+    """The reference's default int32 counts of K_{2,65537}."""
+    g = ref_core.BipartiteGraph(2, K2_B, _k2_edges(),
+                                on_duplicate="assume_unique")
+    return ref_core.count_butterflies(g, mode=mode, engine="fused")
+
+
+@pytest.mark.parametrize("mode", ["global", "vertex", "edge", "all"])
+@pytest.mark.parametrize("engine", count_mod.ENGINES)
+def test_int32_counts_refuse_instead_of_wrapping(engine, mode):
+    """``count_dtype=None`` (int32) on a graph whose total and U counts
+    leave int32: the reference returns a wrong int32 value, the port
+    raises naming the value and the dtype. Its per-edge counts fit, and
+    there the port's int32 result equals the reference's bit for bit."""
+    want = _k2_reference(mode)
+    g = BipartiteGraph(2, K2_B, _k2_edges(), on_duplicate="assume_unique")
+    if mode == "edge":
+        got = count_butterflies(g, mode=mode, engine=engine, device="cpu")
+        assert got.per_edge.dtype == want.per_edge.dtype == np.int32
+        assert np.array_equal(got.per_edge, want.per_edge)
+        assert (got.per_edge == K2_B - 1).all()
+        return
+    wrapped = want.total if mode != "vertex" else want.per_u
+    assert np.asarray(wrapped).dtype == np.int32
+    assert (np.asarray(wrapped) != K2_TOTAL).all()  # a silent wrong answer
+    with pytest.raises(AccumulatorOverflowRisk,
+                       match=f"{K2_TOTAL} does not fit .*int32"):
+        count_butterflies(g, mode=mode, engine=engine, device="cpu")
+    # int64, asked for, is exact
+    r = count_butterflies(g, mode=mode, engine=engine, device="cpu",
+                          count_dtype=torch.int64)
+    assert int((r.per_u if mode == "vertex" else r.total).max()) == K2_TOTAL
+
+
+# The reference's int32 total of K_{310,310}: count_butterflies(g,
+# engine="fused") on the JAX package without x64 returns C(310, 2)^2 =
+# 2,293,931,025 wrapped modulo 2^32 (pinned, not recomputed here, to
+# keep the file short; K_{2,65537} above runs the reference live).
+K310_REFERENCE_INT32 = -2_001_036_271
+
+
+def test_k310_int32_count_refuses(one_thread):
+    a = 310
+    total = (a * (a - 1) // 2) ** 2
+    assert K310_REFERENCE_INT32 == total - 2**32
+    e = np.stack([np.repeat(np.arange(a), a), np.tile(np.arange(a), a)], 1)
+    g = BipartiteGraph(a, a, e, on_duplicate="assume_unique")
+    with pytest.raises(AccumulatorOverflowRisk, match=f"{total} does not fit"):
+        count_butterflies(g, engine="fused_cuda", device="cpu")
