@@ -69,7 +69,25 @@ Phases, each of which fails the run loudly:
      fresh service, each equal to its serial answer; every query prints
      its service report and peak memory, and one more count query prints
      how its wall splits between host steps and device time;
- 10. print one ``{"kernels": [...]}`` line, the card line, and the final
+ 10. checkpoints and distributed execution, on the card at full size:
+     ``distributed_count`` of the smoke graph on a 4-worker mesh of the
+     one card (``launch.mesh.make_test_mesh``, int64, ``max_chunk`` set
+     so that every worker holds tiles; one ``fused_count_tiles`` launch
+     per worker per call) in global, vertex and edge mode against the
+     pinned counts; ``peel_tips(devices=4)`` on ``PEEL_TIPS`` over a
+     ``CheckpointStore(retain_last=2)`` with one injected device loss
+     mid-run, which must end on the distributed rung with one restore,
+     3 workers and the pinned numbers and range-mode round data (it
+     prints its wall, launches, host syncs, checkpoint seconds and bytes
+     per committed round, peak memory, and the device's busy share over
+     host reads 2000-3000 from ``torch.profiler``; the largest
+     ``bucket_update`` reduction is held against the plain version);
+     ``peel_wings`` and ``peel_tips_stored`` with ``devices=2`` on
+     ``PEEL_WINGS_HOST`` against the pin's range and tips entries; and a
+     supervised tip run whose ``deadline_s`` expires mid-run (a ``slow``
+     fault at round 3), which must leave committed rounds that a second
+     run resumes and ends on the pin;
+ 11. print one ``{"kernels": [...]}`` line, the card line, and the final
      ``{"ok": true, "device": {...}}`` line.
 
 Every kernel row has ``ms`` (CUDA events around back-to-back calls,
@@ -1058,6 +1076,294 @@ def service_phase(g, g_tips, dev, launches) -> None:
             launches[name] += n
 
 
+class SupervisorTap:
+    """While a supervised peeling run goes: times each committed round's
+    checkpoint (``PeelSupervisor._capture``: the support fetch, the
+    capture and the file write) and its file's bytes; steps a profiler
+    at each of the supervisor's host reads (``_fetch``) and marks the
+    host clock at reads ``lo`` and ``hi``; and keeps a copy of the
+    inputs of the largest ``bucket_update`` reduction."""
+
+    def __init__(self, dist, ops, prof=None, lo=0, hi=0):
+        self.dist, self.ops, self.prof = dist, ops, prof
+        self.lo, self.hi = lo, hi
+        self.saves, self.marks, self.fetches = [], {}, 0
+        self.largest = None
+
+    def __enter__(self):
+        sup = self.dist.PeelSupervisor
+        self.orig = (sup._capture, sup._fetch, self.ops.bucket_update)
+        capture, fetch, update = self.orig
+        tap = self
+
+        def timed_capture(this, st, support=None):
+            t0 = time.perf_counter()
+            capture(this, st, support)
+            secs = time.perf_counter() - t0
+            d = this.store.directory
+            path = os.path.join(d, f"checkpoint_round_{st.rounds:06d}.json")
+            tap.saves.append((st.rounds, secs,
+                              os.path.getsize(path) if d else 0))
+
+        def stepped_fetch(this, t):
+            tap.fetches += 1
+            if tap.prof is not None:
+                if tap.fetches in (tap.lo, tap.hi):
+                    torch.cuda.synchronize()
+                    tap.marks[tap.fetches] = time.perf_counter()
+                tap.prof.step()
+            return fetch(this, t)
+
+        def kept_update(counts, alive, idx, dec):
+            if tap.largest is None or idx.numel() > tap.largest[2].numel():
+                tap.largest = tuple(a.clone() for a in
+                                    (counts, alive, idx, dec))
+            return update(counts, alive, idx, dec)
+
+        sup._capture, sup._fetch = timed_capture, stepped_fetch
+        self.ops.bucket_update = kept_update
+        return self
+
+    def __exit__(self, *exc):
+        sup = self.dist.PeelSupervisor
+        sup._capture, sup._fetch, self.ops.bucket_update = self.orig
+
+
+def distributed_phase(g, wedges, dev, launches) -> None:
+    """Phase 10: checkpoints and distributed execution on the card, each
+    call with the launch counts zeroed just before it and read just
+    after, each against the pinned JAX references. ``wedges`` is the
+    smoke graph's wedge count, which sizes the mesh's tiles."""
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.core import (
+        CheckpointStore, peel_tips, peel_tips_stored, peel_wings,
+    )
+    from repro_torch.core import distributed as dist
+    from repro_torch.data.graphs import powerlaw_bipartite
+    from repro_torch.kernels import ops, ref as plain
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.testing import faults
+
+    with open(REFERENCE) as f:
+        ref = json.load(f)
+    with open(PEEL_REFERENCE) as f:
+        peel_ref = json.load(f)
+
+    def run(label, fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        used = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for name, n in used.items():
+            launches[name] += n
+        print(f"{label}: wall {wall:.3f} s, peak {peak:.3f} GiB, launches "
+              f"{used}", flush=True)
+        return out, used, wall
+
+    def check_peel(label, r, want, rung="distributed"):
+        rep = r.report
+        if rep.final_rung != rung or rep.retries:
+            fail(f"{label} finished on {rep.final_rung}, not {rung}, or "
+                 f"re-dispatched a worker no fault delayed: "
+                 f"{rep.summary()}")
+        if r.numbers.dtype != np.int64 or digest(r.numbers) != want[
+                "sha256_int64"]:
+            fail(f"{label}: numbers differ from the pinned JAX reference")
+        if (digest(r.round_sizes) != want["round_sizes_sha256_int64"]
+                or (r.rounds, r.sub_rounds) != (want["rounds"],
+                                                want["sub_rounds"])):
+            fail(f"{label}: round data {r.rounds}/{r.sub_rounds} differ "
+                 f"from the pinned {want['rounds']}/{want['sub_rounds']}")
+        print(f"{label}: numbers, rounds {r.rounds}, sub_rounds "
+              f"{r.sub_rounds} and round sizes equal the pin; host syncs "
+              f"{rep.host_syncs}, largest frontier {rep.frontier_lanes} "
+              f"items, restores {rep.checkpoint_restores}, re-dispatches "
+              f"{rep.retries}", flush=True)
+        for child in rep.children:
+            print(f"  {child.summary()}", flush=True)
+
+    # 1. mesh-partitioned counting on the smoke graph, 4 workers on 1 card
+    mesh = make_test_mesh((4,), ("data",), device=dev)
+    # a power of two near a 16th of the wedges, so every worker holds
+    # tiles (the default budget cuts the smoke graph into 5 tiles)
+    max_chunk = 1 << max(int(wedges // 16).bit_length() - 1, 7)
+    cards = sorted(set(map(str, mesh.workers())))
+    print(f"distributed count: 4 workers on {cards}, max_chunk {max_chunk} "
+          f"wedges", flush=True)
+    holders = None
+    for mode in ("global", "vertex", "edge"):
+        (out, rg), used, _ = run(
+            f"distributed_count mode={mode}",
+            lambda: dist.distributed_count(
+                g, mesh, mode=mode, count_dtype=torch.int64,
+                engine="fused", max_chunk=max_chunk))
+        if holders is None:
+            tiles, cap = dist.plan_fused_partition(rg, 4, max_chunk=max_chunk)
+            held = (tiles[:, :, 1] > tiles[:, :, 0]).sum(1)
+            holders = int((held > 0).sum())
+            print(f"distributed count plan: tiles per worker {held.tolist()}, "
+                  f"tile_cap {cap}", flush=True)
+            if holders != 4:
+                fail(f"only {holders} of 4 workers hold tiles")
+        if used["fused_count_tiles"] != holders:
+            fail(f"distributed_count mode={mode} launched fused_count_tiles "
+                 f"{used['fused_count_tiles']} times, not once per worker")
+        out = out.cpu().numpy()
+        if mode == "global":
+            if int(out) != ref["total"]:
+                fail(f"distributed total {int(out)} != pinned {ref['total']}")
+        elif mode == "vertex":
+            for field, idx in (("per_u", rg.rank_of_u),
+                               ("per_v", rg.rank_of_v)):
+                if digest(out[idx]) != ref["sha256_int64"][field]:
+                    fail(f"distributed {field} differs from the pin")
+        elif digest(out) != ref["sha256_int64"]["per_edge"]:
+            fail("distributed per_edge differs from the pin")
+    print("distributed count: total, per-vertex and per-edge equal the pin",
+          flush=True)
+
+    graphs = {}
+    for name in ("PEEL_TIPS", "PEEL_WINGS_HOST"):
+        spec = peel_ref[name]["generator"]
+        graphs[name] = powerlaw_bipartite(spec["n_u"], spec["n_v"], spec["m"],
+                                          seed=spec["seed"])
+        if graphs[name].content_hash() != peel_ref[name]["content_hash"]:
+            fail(f"{name} differs from the pinned graph")
+
+    # 2. distributed tips at full size: 4 workers, one lost mid-run
+    tips_ref = peel_ref["PEEL_TIPS"]
+    lost_round = tips_ref["range"]["rounds"] // 2
+    lo, hi = 2000, 3000
+    with tempfile.TemporaryDirectory() as d:
+        store = CheckpointStore(directory=d, retain_last=2)
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=lo - 1, warmup=1, active=hi - lo,
+                                       repeat=1)) as prof, \
+                SupervisorTap(dist, ops, prof, lo, hi) as tap, \
+                faults.inject("device_loss", site=f"round{lost_round}.",
+                              times=1, device=1) as lost:
+            r, used, wall = run(
+                "distributed peel_tips PEEL_TIPS devices=4",
+                lambda: peel_tips(graphs["PEEL_TIPS"], devices=4,
+                                  checkpoint=store,
+                                  count_kwargs={"engine": "fused_cuda"},
+                                  device=dev))
+        files = sorted(os.listdir(d))
+    check_peel("distributed tips", r, {**tips_ref["range"],
+                                       "sha256_int64":
+                                       tips_ref["exact"]["sha256_int64"]})
+    rep = r.report
+    final = sum(c.final_rung is not None for c in rep.children)
+    print(f"distributed tips: device loss at round {lost_round} fired "
+          f"{lost.fired}x ({lost.hits}); restores {rep.checkpoint_restores}, "
+          f"workers {len(rep.children)} -> {final}; {len(files)} checkpoint "
+          f"files left ({files}); sub-rounds {r.sub_rounds}", flush=True)
+    if (lost.fired != 1 or rep.checkpoint_restores != 1 or final != 3
+            or len(files) > 2):
+        fail("distributed tips: expected one loss, one restore, 3 workers "
+             "left and at most 2 files")
+    for name in ("bucket_update", "bucket_min", "fused_count_tiles"):
+        if used[name] == 0:
+            fail(f"distributed tips ran without launching {name}")
+    secs = [s for _r, s, _b in tap.saves]
+    nbytes = [b for _r, _s, b in tap.saves]
+    print(f"distributed tips checkpoints: {len(tap.saves)} saves, "
+          f"{sum(secs):.3f} s in all, per committed round "
+          f"{np.mean(secs):.4f} s mean / {max(secs):.4f} s max, "
+          f"{int(np.mean(nbytes))} B mean / {max(nbytes)} B max", flush=True)
+    print(f"distributed tips: {rep.host_syncs} host syncs for "
+          f"{r.sub_rounds} sub-rounds, {wall / r.sub_rounds * 1e3:.4f} ms of "
+          f"wall per sub-round (the profiled window included)", flush=True)
+    busy = [(e.self_device_time_total / 1e3, e.key, e.count)
+            for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU
+            and e.self_device_time_total > 0]
+    if len(tap.marks) == 2 and busy:
+        busy_ms = sum(ms for ms, _k, _c in busy)
+        win_ms = (tap.marks[hi] - tap.marks[lo]) * 1e3
+        print(f"profile distributed tips, host reads {lo}-{hi}: device busy "
+              f"{busy_ms:.3f} ms of {win_ms:.3f} ms wall, idle share "
+              f"{1 - busy_ms / win_ms:.4f}; per read {win_ms / (hi - lo):.4f}"
+              f" ms wall, {busy_ms / (hi - lo):.4f} ms device", flush=True)
+        for ms, key, count in sorted(busy, reverse=True)[:8]:
+            print(f"  {ms:10.3f} ms  {count:8d}x  {key[:80]}", flush=True)
+    else:
+        print("profile distributed tips: no device time in the window "
+              "(not measured)", flush=True)
+    # the largest reduction of the run, against its plain version
+    args = tap.largest
+    got, want = ops.bucket_update(*args), plain.bucket_update_ref(*args)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err != 0:
+        fail(f"bucket_update differs from its plain version on the "
+             f"supervisor's largest reduction (max |err| {err})")
+    print(f"bucket_update: bitwise equal to plain on the supervisor's "
+          f"largest reduction (n={args[0].numel()}, batch "
+          f"{args[2].numel()})", flush=True)
+    del tap, args, got, want
+
+    # 3. wings and stored tips through the supervisor, 2 workers
+    host_ref = peel_ref["PEEL_WINGS_HOST"]
+    gw = graphs["PEEL_WINGS_HOST"]
+    r, used, _ = run("distributed peel_wings PEEL_WINGS_HOST devices=2",
+                     lambda: peel_wings(gw, devices=2,
+                                        count_kwargs={"engine": "fused_cuda"},
+                                        device=dev))
+    check_peel("distributed wings", r, {**host_ref["range"], "sha256_int64":
+                                        host_ref["exact"]["sha256_int64"]})
+    r, used, _ = run("distributed peel_tips_stored PEEL_WINGS_HOST devices=2",
+                     lambda: peel_tips_stored(
+                         gw, devices=2, count_kwargs={"engine": "fused_cuda"},
+                         device=dev))
+    tref = host_ref["tips"]
+    if r.side != tref["side"]:
+        fail(f"stored tips peeled side {r.side}, pinned {tref['side']}")
+    check_peel("distributed stored tips", r, {
+        **tref["range"], "sha256_int64": tref["exact"]["sha256_int64"]})
+    for name in ("bucket_update", "fused_count_tiles"):
+        if used[name] == 0:
+            fail(f"distributed stored tips ran without launching {name}")
+
+    # 4. resume: a run budget that expires mid-run, then a run without one
+    with tempfile.TemporaryDirectory() as d:
+        with faults.inject("slow", site="round3.", times=None, delay=4.0):
+            r, used, _ = run(
+                "distributed peel_tips PEEL_WINGS_HOST devices=2 deadline_s=2",
+                lambda: peel_tips(gw, devices=2, checkpoint=d, deadline_s=2.0,
+                                  count_kwargs={"engine": "fused_cuda"},
+                                  device=dev))
+        first = r.report.attempts[0]
+        committed = max(int(f[len("checkpoint_round_"):-5])
+                        for f in os.listdir(d))
+        print(f"resume: the supervised run ended {first.outcome} "
+              f"({first.detail[:120]}), {committed} rounds committed; the "
+              f"ladder finished on {r.report.final_rung}", flush=True)
+        if first.outcome != "deadline-exceeded" or committed < 1:
+            fail("the deadline did not stop the supervised run after a "
+                 "committed round")
+        r, used, _ = run("distributed peel_tips PEEL_WINGS_HOST resumed",
+                         lambda: peel_tips(
+                             gw, devices=2, checkpoint=d,
+                             count_kwargs={"engine": "fused_cuda"},
+                             device=dev))
+    if r.report.resumed_from_round != committed:
+        fail(f"the second run resumed from round "
+             f"{r.report.resumed_from_round}, not {committed}")
+    check_peel("resumed tips", r, {**tref["range"], "sha256_int64":
+                                   tref["exact"]["sha256_int64"]})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs "
@@ -1186,8 +1492,12 @@ def main() -> int:
     approx_phase(g, dev, launches)
     service_phase(g, g_tips, dev, launches)
 
-    # -- 10. report -----------------------------------------------------
+    # -- 10. checkpoints and distributed execution -----------------------
     phase(10)
+    distributed_phase(g, W, dev, launches)
+
+    # -- 11. report -----------------------------------------------------
+    phase(11)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         row = rows[name]

@@ -7,6 +7,7 @@ from .approx import ApproxCount, SampleState, sample_count
 from .sparsify import approx_count, sparsify_colorful, sparsify_edges
 from .fibheap import BucketStructure, FibHeap
 from .peel import PeelResult, peel_tips, peel_tips_stored, peel_wings
+from .checkpoint import CheckpointStore, RoundCheckpoint
 from .resilience import (
     AccumulatorOverflowRisk,
     CapacityOverflow,
@@ -42,6 +43,8 @@ __all__ = [
     "peel_tips",
     "peel_tips_stored",
     "peel_wings",
+    "CheckpointStore",
+    "RoundCheckpoint",
     "FibHeap",
     "BucketStructure",
     "ResilienceError",

@@ -78,6 +78,7 @@ __all__ = [
     "count_validator",
     "interpret_counts",
     "default_count_dtype",
+    "narrow_counts",
     "ENGINES",
     "ENGINE_MAP",
     "COUNT_LADDERS",
@@ -330,10 +331,10 @@ def count_from_ranked(
         batch_rows=batch_rows, batch_target=batch_target, engine=engine,
         max_chunk=max_chunk, hash_bits=hash_bits, device=device,
     )
-    return _narrow(out, want) if want == torch.int32 else out
+    return narrow_counts(out, want) if want == torch.int32 else out
 
 
-def _narrow(out, dtype: torch.dtype):
+def narrow_counts(out, dtype: torch.dtype):
     """Narrow int64 counts (a tensor or a tuple of them) to ``dtype``
     when every value fits, in one host sync; otherwise raise
     :class:`~repro_torch.core.resilience.AccumulatorOverflowRisk` naming

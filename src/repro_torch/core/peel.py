@@ -71,9 +71,16 @@ Knobs of the device engine:
     never a silent truncation. Counts at or beyond INT32_MAX also take
     the host engine.
 
-Not ported yet (each raises ``NotImplementedError``, ROADMAP.md queue 1
-step 7): the distributed rung (``devices=``, ``checkpoint=``,
-``round_deadline_s=``, ``deadline_s=``).
+The distributed rung (``devices=N`` or ``"auto"``) sits on top of either
+ladder: the supervised, checkpointable bucket-range round loop of
+``distributed.PeelSupervisor``. Each sub-round's frontier is expanded
+in host numpy, fanned out across N workers along the plan's entity
+tiles, and its decrement batches are applied in one ``bucket_update``
+launch. ``checkpoint=`` (a directory or a ``CheckpointStore``) keeps a
+snapshot per committed round for lost-worker rollback and resume;
+``round_deadline_s=`` overrides the straggler deadline and
+``deadline_s=`` bounds the whole run. The numbers are every other
+engine's; ``rounds`` and ``sub_rounds`` follow ``peel_mode="range"``.
 
 Double-count avoidance (paper §4.3.1/§4.3.2): peel-set members are
 processed against a virtual rank order (their id); an element of the
@@ -89,9 +96,10 @@ import torch
 
 from ..kernels import ops as _kops
 from ..testing import faults as _faults
+from . import distributed as _dist
 from . import resilience as _res
 from .count import count_butterflies, default_count_dtype
-from .device import resolve_device
+from .device import resolve_device, visible_count
 from .graph import BipartiteGraph
 from .pipeline import (
     I32_MAX as _I32_MAX,
@@ -139,8 +147,6 @@ PEEL_MODES = ("exact", "range")
 # pads no tile, so the target only bounds a round's peak temporaries
 # (a few hundred bytes per lane).
 _DEFAULT_TILE_TARGET = 1 << 20
-
-_NOT_PORTED = "not ported to PyTorch yet (ROADMAP.md, queue 1 step 7)"
 
 
 class PeelResult(NamedTuple):
@@ -592,6 +598,121 @@ def _stored_frontier(woff, w_u2):
     return frontier
 
 
+# ---------------------------------------------------------------------------
+# The distributed rung: host numpy frontier expansion and per-worker
+# decrement batches for the supervisor (distributed.PeelSupervisor).
+# ``owner`` is the ascending iterating-entity id of each frontier item,
+# the routing key of the entity-range fan-out; every subtract group is
+# keyed by that entity, so the workers' batches add exactly.
+# ---------------------------------------------------------------------------
+
+
+def _resolve_devices(devices, device: torch.device) -> int:
+    """``devices=`` knob: an int mesh width or ``"auto"`` (every visible
+    CUDA card on a CUDA device, 1 on the CPU)."""
+    if devices == "auto":
+        return visible_count(device.type)
+    return int(devices)
+
+
+def _pair_expand_fn(frontier):
+    """PEEL-V / WPEEL-V frontier for the supervisor: the round's wedge
+    pairs from ``frontier(a_ids)`` whose second endpoint is alive,
+    routed by their first endpoint."""
+
+    def expand(a_ids, alive, peel):
+        u1_w, u2_w = frontier(a_ids)
+        ok = alive[u2_w]
+        u1_w, u2_w = u1_w[ok], u2_w[ok]
+        return u1_w, (u1_w, u2_w)
+
+    return expand
+
+
+def _pair_subtract_fn(n_side: int, dtype):
+    """One worker's tip decrement batch: its (u1, u2) pairs grouped by
+    sorting (``_group_ends``), C(d, 2) per group at u2 in the count dtype
+    (32-bit counts wrap as the reference's do); lanes that end no group
+    carry the dropped index ``n_side``."""
+    tdt = getattr(torch, np.dtype(dtype).name)
+
+    def subtract(payload, device):
+        u1, u2 = (torch.as_tensor(a, device=device).long() for a in payload)
+        s, d, last = _group_ends(u1 * n_side + u2, n_side * n_side)
+        d = d.to(tdt)
+        return torch.where(last, s % n_side, n_side), d * (d - 1) // 2
+
+    return subtract
+
+
+def _wing_expand_fn(locate):
+    """PEEL-E frontier for the supervisor: each located butterfly's three
+    other edges, routed by its peeled edge. The supervisor clears
+    ``alive`` before expanding, so the paper's presence rule rebuilds the
+    pre-round mask as ``alive | peel``."""
+
+    def expand(a_ids, alive, peel):
+        alive_prev = alive | peel
+
+        def present(x, a):
+            return alive_prev[x] & (~peel[x] | (x > a))
+
+        a2, tri = locate(a_ids, present)
+        return a2, (tri,)
+
+    return expand
+
+
+def _tri_subtract_fn(dtype):
+    """One worker's wing decrement batch: 1 per still-present edge of
+    each located butterfly (the host engine's raw triple scatter)."""
+    tdt = getattr(torch, np.dtype(dtype).name)
+
+    def subtract(payload, device):
+        (tri,) = payload
+        idx = torch.as_tensor(tri.reshape(-1), device=device)
+        return idx, torch.ones(idx.shape[0], dtype=tdt, device=device)
+
+    return subtract
+
+
+def _merge_distributed(report: "_res.ExecutionReport", sp) -> None:
+    """Fold a :class:`~repro_torch.core.distributed.SupervisedPeel` audit
+    into the ladder report: rollbacks, the resumed round and one child
+    row per worker."""
+    report.checkpoint_restores += sp.checkpoint_restores
+    report.resumed_from_round = sp.resumed_from_round
+    for child in sp.device_reports:
+        report.merge_child(child)
+
+
+def _distributed_rung(kind, plan, counts, side, expand, subtract, knobs,
+                      device, audit, dist):
+    """The ``distributed`` rung of a peeling ladder: one supervised run
+    over ``knobs["devices"]`` workers; its host syncs and largest
+    frontier go to ``audit``, its result to ``dist``."""
+
+    def run(shrinks: int):
+        _faults.maybe_oom(f"{kind}.distributed")
+        _faults.maybe_slow_rung(f"{kind}.distributed")
+        sup = _dist.PeelSupervisor(
+            kind, plan, counts, expand=expand, subtract=subtract,
+            devices=_resolve_devices(knobs["devices"], device),
+            checkpoint=knobs["checkpoint"],
+            round_deadline_s=knobs["round_deadline_s"],
+            deadline_s=knobs["deadline_s"], device=device,
+        )
+        try:
+            sp = sup.run()
+        finally:
+            audit.append((sup.syncs, 0, sup.lanes))
+        dist.append(sp)
+        return PeelResult(sp.numbers, side, sp.rounds, sp.round_sizes,
+                          sub_rounds=sp.sub_rounds)
+
+    return _res.Rung("distributed", run, shrinkable=False)
+
+
 def _check_engine(engine: str) -> None:
     if engine not in PEEL_ENGINES:
         raise ValueError(
@@ -600,10 +721,8 @@ def _check_engine(engine: str) -> None:
 
 
 def _check_knobs(aggregation: str, subtract: str, decrease_key: str,
-                 capacity_schedule: str, peel_mode: str = "exact",
-                 distributed: dict = ()) -> None:
-    """Reject unknown knob values (ValueError) and the reference's knobs
-    this port does not run yet (NotImplementedError)."""
+                 capacity_schedule: str, peel_mode: str = "exact") -> None:
+    """Reject unknown knob values (ValueError)."""
     if aggregation not in ("sort", "hash"):
         raise ValueError(
             f"peeling aggregation must be sort|hash, got {aggregation}"
@@ -626,11 +745,6 @@ def _check_knobs(aggregation: str, subtract: str, decrease_key: str,
         raise ValueError(
             f"peel_mode must be {'|'.join(PEEL_MODES)}, got {peel_mode}"
         )
-    for name, value in dict(distributed).items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}= (the distributed rung) is {_NOT_PORTED}"
-            )
 
 
 class _RoundAccounting:
@@ -706,21 +820,19 @@ def _capacity(max_frontier, tile_budget) -> tuple:
     )
 
 
-def _run_ladder(kind, policy, rungs, counts, plan, audit):
+def _run_ladder(kind, policy, rungs, counts, plan, audit, dist=()):
     """Run the rungs and record on the report what the round loops
     counted: host syncs and capacity segments summed over the attempts,
-    and the largest round frontier."""
+    and the largest round frontier; then fold in the audit of a
+    supervised distributed run (``dist``)."""
     out, report = _execute_ladder(kind, policy, rungs,
                                   _peel_validator(counts), plan=plan)
     report.host_syncs = sum(a[0] for a in audit)
     report.segments = sum(a[1] for a in audit)
     report.frontier_lanes = max((a[2] for a in audit), default=0)
+    if dist:
+        _merge_distributed(report, dist[-1])
     return policy.attach(out, report)
-
-
-def _distributed_knobs(devices, checkpoint, round_deadline_s, deadline_s):
-    return dict(devices=devices, checkpoint=checkpoint,
-                round_deadline_s=round_deadline_s, deadline_s=deadline_s)
 
 
 def peel_tips(
@@ -766,8 +878,7 @@ def peel_tips(
     """
     _check_engine(engine)
     _check_knobs(aggregation, subtract, decrease_key, capacity_schedule,
-                 peel_mode, _distributed_knobs(devices, checkpoint,
-                                               round_deadline_s, deadline_s))
+                 peel_mode)
     device = resolve_device(device)
     policy = _res.resolve_policy(resilience)
     hash_bits = _faults.hash_bits_override("peel_tips", hash_bits)
@@ -813,7 +924,17 @@ def peel_tips(
     rungs = [_res.Rung("host", run_host, shrinkable=False)]
     if engine == "device":
         rungs.insert(0, _res.Rung("device", run_device))
-    return _run_ladder("peel_tips", policy, rungs, counts, plan, audit)
+    dist: list = []
+    if devices is not None:
+        rungs.insert(0, _distributed_rung(
+            "peel_tips", plan, counts, side,
+            _pair_expand_fn(_two_hop_frontier(off, nbr, base)),
+            _pair_subtract_fn(n_side, counts.dtype),
+            dict(devices=devices, checkpoint=checkpoint,
+                 round_deadline_s=round_deadline_s, deadline_s=deadline_s),
+            device, audit, dist,
+        ))
+    return _run_ladder("peel_tips", policy, rungs, counts, plan, audit, dist)
 
 
 def peel_tips_stored(
@@ -852,8 +973,7 @@ def peel_tips_stored(
     """
     _check_engine(engine)
     _check_knobs(aggregation, subtract, decrease_key, capacity_schedule,
-                 peel_mode, _distributed_knobs(devices, checkpoint,
-                                               round_deadline_s, deadline_s))
+                 peel_mode)
     device = resolve_device(device)
     policy = _res.resolve_policy(resilience)
     hash_bits = _faults.hash_bits_override("peel_tips_stored", hash_bits)
@@ -897,8 +1017,18 @@ def peel_tips_stored(
     rungs = [_res.Rung("host", run_host, shrinkable=False)]
     if engine == "device":
         rungs.insert(0, _res.Rung("device", run_device))
+    dist: list = []
+    if devices is not None:
+        rungs.insert(0, _distributed_rung(
+            "peel_tips_stored", plan, counts, side,
+            _pair_expand_fn(_stored_frontier(woff, w_u2)),
+            _pair_subtract_fn(n_side, counts.dtype),
+            dict(devices=devices, checkpoint=checkpoint,
+                 round_deadline_s=round_deadline_s, deadline_s=deadline_s),
+            device, audit, dist,
+        ))
     return _run_ladder("peel_tips_stored", policy, rungs, counts, plan,
-                       audit)
+                       audit, dist)
 
 
 # ---------------------------------------------------------------------------
@@ -1125,22 +1255,77 @@ def _peel_wings_device_run(g, counts, aggregation, max_frontier, hash_bits,
     return _result(st, None)
 
 
-
-
-def _peel_wings_host(g, counts, off, nbr, uid, peel_mode, device,
-                     audit=None) -> PeelResult:
-    """Host wing round loop (PEEL-E's bottom rung): per-butterfly triple
-    location in numpy via min-degree-side intersections and
-    binary-search edge membership, subtracted on the device. While the
-    counts fit int32 the round's extract-min is the ``bucket_min``
-    kernel (on the card), fetched with the counts in one copy."""
-    n, m = g.n, g.m
+def _wing_triples(g: BipartiteGraph, off, nbr, uid):
+    """PEEL-E's butterfly location (the host engine's level-1/level-2
+    block): ``locate(a_ids, present) -> (a2, tri)`` finds, for the
+    peeled edges ``a_ids`` (ascending) and a presence test ``present(x,
+    a)``, every butterfly through a peeled edge ``a = (u1, v1)`` by
+    min-degree-side intersection and binary-search edge membership:
+    ``tri`` is ``(k, 3)``, the butterfly's other edges ``(b, c, d)``,
+    and ``a2`` its peeled edge (ascending)."""
+    n = g.n
     # lexsorted composite keys for edge-membership binary search
     src = np.repeat(np.arange(n), np.diff(off))
     comp = src * np.int64(n) + nbr
     deg = np.diff(off)
     eu = g.edges[:, 0].astype(np.int64)
     ev = (g.edges[:, 1] + g.n_u).astype(np.int64)
+    empty = (np.empty(0, np.int64), np.empty((0, 3), np.int64))
+
+    def locate(a_ids, present):
+        # level 1: (a=(u1,v1), u2 in N(v1))
+        u1s, v1s = eu[a_ids], ev[a_ids]
+        d1 = deg[v1s]
+        a_rep = np.repeat(a_ids, d1)
+        u1_rep = np.repeat(u1s, d1)
+        v1_rep = np.repeat(v1s, d1)
+        pos_b = _ranges(off[v1s], d1)
+        u2_rep = nbr[pos_b]
+        b_edge = uid[pos_b]
+        keep = (u2_rep != u1_rep) & present(b_edge, a_rep)
+        a_rep, u1_rep, v1_rep, u2_rep, b_edge = (
+            a_rep[keep], u1_rep[keep], v1_rep[keep], u2_rep[keep],
+            b_edge[keep],
+        )
+        if a_rep.size == 0:
+            return empty
+        # level 2: scan the smaller of N(u1), N(u2)
+        small_is_u1 = deg[u1_rep] <= deg[u2_rep]
+        small = np.where(small_is_u1, u1_rep, u2_rep)
+        other = np.where(small_is_u1, u2_rep, u1_rep)
+        d2 = deg[small]
+        a2 = np.repeat(a_rep, d2)
+        v1_2 = np.repeat(v1_rep, d2)
+        b_2 = np.repeat(b_edge, d2)
+        oth2 = np.repeat(other, d2)
+        pos_s = _ranges(off[small], d2)
+        v2 = nbr[pos_s]
+        e_small = uid[pos_s]
+        # membership: (other, v2) must be an edge
+        key = oth2 * np.int64(n) + v2
+        p = np.minimum(np.searchsorted(comp, key), comp.shape[0] - 1)
+        hit = comp[p] == key
+        e_other = uid[p]
+        # c = (u1, v2), d = (u2, v2): map small/other back
+        si2 = np.repeat(small_is_u1, d2)
+        c_edge = np.where(si2, e_small, e_other)
+        d_edge = np.where(si2, e_other, e_small)
+        ok = (hit & (v2 != v1_2) & present(c_edge, a2)
+              & present(d_edge, a2))
+        return a2[ok], np.stack([b_2, c_edge, d_edge], axis=1)[ok]
+
+    return locate
+
+
+def _peel_wings_host(g, counts, off, nbr, uid, peel_mode, device,
+                     audit=None) -> PeelResult:
+    """Host wing round loop (PEEL-E's bottom rung): per-butterfly triple
+    location in numpy (``_wing_triples``), subtracted on the device.
+    While the counts fit int32 the round's extract-min is the
+    ``bucket_min`` kernel (on the card), fetched with the counts in one
+    copy."""
+    m = g.m
+    locate = _wing_triples(g, off, nbr, uid)
     # bucket_min reduces in int32: counts at/above INT32_MAX would alias
     # its empty sentinel, so such graphs keep the host min
     kernel_min = int(counts.max(initial=0)) < _I32_MAX
@@ -1174,51 +1359,13 @@ def _peel_wings_host(g, counts, off, nbr, uid, peel_mode, device,
         def present(x, a):
             return alive[x] & (~in_a[x] | (x > a))
 
-        # level 1: (a=(u1,v1), u2 in N(v1))
-        u1s, v1s = eu[a_ids], ev[a_ids]
-        d1 = deg[v1s]
-        a_rep = np.repeat(a_ids, d1)
-        u1_rep = np.repeat(u1s, d1)
-        v1_rep = np.repeat(v1s, d1)
-        pos_b = _ranges(off[v1s], d1)
-        u2_rep = nbr[pos_b]
-        b_edge = uid[pos_b]
-        keep = (u2_rep != u1_rep) & present(b_edge, a_rep)
-        a_rep, u1_rep, v1_rep, u2_rep, b_edge = (
-            a_rep[keep], u1_rep[keep], v1_rep[keep], u2_rep[keep],
-            b_edge[keep],
-        )
-        if a_rep.size:
-            # level 2: scan the smaller of N(u1), N(u2)
-            small_is_u1 = deg[u1_rep] <= deg[u2_rep]
-            small = np.where(small_is_u1, u1_rep, u2_rep)
-            other = np.where(small_is_u1, u2_rep, u1_rep)
-            d2 = deg[small]
-            a2 = np.repeat(a_rep, d2)
-            v1_2 = np.repeat(v1_rep, d2)
-            b_2 = np.repeat(b_edge, d2)
-            oth2 = np.repeat(other, d2)
-            pos_s = _ranges(off[small], d2)
-            v2 = nbr[pos_s]
-            e_small = uid[pos_s]
-            # membership: (other, v2) must be an edge
-            key = oth2 * np.int64(n) + v2
-            p = np.minimum(np.searchsorted(comp, key), comp.shape[0] - 1)
-            hit = comp[p] == key
-            e_other = uid[p]
-            # c = (u1, v2), d = (u2, v2): map small/other back
-            si2 = np.repeat(small_is_u1, d2)
-            c_edge = np.where(si2, e_small, e_other)
-            d_edge = np.where(si2, e_other, e_small)
-            ok = (hit & (v2 != v1_2) & present(c_edge, a2)
-                  & present(d_edge, a2))
-            tri = np.stack([b_2, c_edge, d_edge], axis=1)[ok].ravel()
-            if tri.size:
-                b_dev.index_add_(
-                    0, torch.as_tensor(tri, device=device),
-                    torch.full((tri.size,), -1, dtype=b_dev.dtype,
-                               device=device),
-                )
+        tri = locate(a_ids, present)[1].reshape(-1)
+        if tri.size:
+            b_dev.index_add_(
+                0, torch.as_tensor(tri, device=device),
+                torch.full((tri.size,), -1, dtype=b_dev.dtype,
+                           device=device),
+            )
         alive[a_ids] = False
     if audit is not None:
         audit.append((acct.syncs, 0, 0))
@@ -1262,8 +1409,7 @@ def peel_wings(
     """
     _check_engine(engine)
     _check_knobs(aggregation, subtract, decrease_key, capacity_schedule,
-                 peel_mode, _distributed_knobs(devices, checkpoint,
-                                               round_deadline_s, deadline_s))
+                 peel_mode)
     device = resolve_device(device)
     policy = _res.resolve_policy(resilience)
     hash_bits = _faults.hash_bits_override("peel_wings", hash_bits)
@@ -1309,4 +1455,15 @@ def peel_wings(
     rungs = [_res.Rung("host", run_host, shrinkable=False)]
     if engine == "device":
         rungs.insert(0, _res.Rung("device", run_device))
-    return _run_ladder("peel_wings", policy, rungs, counts, plan, audit)
+    dist: list = []
+    if devices is not None:
+        rungs.insert(0, _distributed_rung(
+            "peel_wings", plan, counts, None,
+            _wing_expand_fn(_wing_triples(g, off, nbr, uid)),
+            _tri_subtract_fn(counts.dtype),
+            dict(devices=devices, checkpoint=checkpoint,
+                 round_deadline_s=round_deadline_s, deadline_s=deadline_s),
+            device, audit, dist,
+        ))
+    return _run_ladder("peel_wings", policy, rungs, counts, plan, audit,
+                       dist)

@@ -70,6 +70,7 @@ __all__ = [
     "dtype_name",
     "plan_count",
     "plan_partition",
+    "partition_tile_array",
     # execute: counting
     "choose2",
     "group_choose2",
@@ -472,6 +473,22 @@ def plan_partition(plan: WedgePlan, n: int) -> list:
             w_start=int(plan.w_start + pref[t0]),
         ))
     return parts
+
+
+def partition_tile_array(parts) -> tuple:
+    """Pack partitioned sub-plans into the per-worker tile format:
+    ``(tiles (n_dev, max_tiles, 2) int64, tile_cap)``, flat wedge-id
+    ``[start, end)`` per tile, rows padded with empty ``(0, 0)`` tiles
+    (the ``distributed.distributed_count_fn`` contract). The values are
+    the reference's; the reference stores them as int32, the port's flat
+    ids are int64."""
+    per_dev = [p.tile_flat_bounds() for p in parts]
+    max_tiles = max(1, max(t.shape[0] for t in per_dev))
+    tiles = np.zeros((len(parts), max_tiles, 2), np.int64)
+    for d, t in enumerate(per_dev):
+        tiles[d, : t.shape[0]] = t
+    tile_cap = max(p.chunk_cap for p in parts)
+    return tiles, int(tile_cap)
 
 
 # ---------------------------------------------------------------------------

@@ -264,6 +264,8 @@ class ExecutionReport:
     # applied scale) — None for exact results
     estimator: Optional[str] = None
     checkpoint_restores: int = 0  # supervisor rollbacks to a snapshot
+    # committed round a supervised run resumed from (0 = fresh start)
+    resumed_from_round: int = 0
     # blocking device -> host fetches the peeling round loops made,
     # summed over every rung attempted
     host_syncs: int = 0
@@ -315,6 +317,8 @@ class ExecutionReport:
         base = f"{self.workload}: requested={self.requested} {path}"
         if self.checkpoint_restores:
             base += f" restores={self.checkpoint_restores}"
+        if self.resumed_from_round:
+            base += f" resumed={self.resumed_from_round}"
         if self.host_syncs:
             base += f" syncs={self.host_syncs}"
         if self.segments:

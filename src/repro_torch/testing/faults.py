@@ -15,6 +15,13 @@ Injection points on the counting path:
     ``hash_bits_override`` (force the bounded-probe table into overflow
     so the sort fallback must fire) and ``capacity_override`` (force the
     fused kernel's tile bound so the ladder must descend).
+  - ``core/distributed.py``: ``worker_env`` marks a subprocess device
+    worker for death (exit or hang) or a startup delay (``slow``) on its
+    next launch attempt; the in-process peeling supervisor asks
+    ``maybe_device_loss`` / ``maybe_slow`` at every per-worker round
+    dispatch (sites ``distributed.peel.round<r>.dev<d>``), which is how
+    the chaos tests kill a worker at an exact round boundary or make one
+    straggle past the supervisor's per-round deadline.
 
 Counting the sites: ``times=N`` makes a fault fire on its first N
 matching hook hits then go quiet (a transient fault: the retry or the
@@ -36,13 +43,17 @@ __all__ = [
     "Fault",
     "inject",
     "active",
+    "active_kinds",
     "should_fire",
     "maybe_oom",
     "maybe_poison",
+    "maybe_device_loss",
+    "maybe_slow",
     "maybe_slow_rung",
     "maybe_overload",
     "hash_bits_override",
     "capacity_override",
+    "worker_env",
 ]
 
 # Sentinel planted by the poison fault: large positive so it provably
@@ -55,6 +66,8 @@ KINDS = (
     "poison",  # plant POISON in the site's value
     "hash_overflow",  # shrink the bounded-probe hash table
     "capacity_overflow",  # shrink the fused kernel's tile capacity
+    "device_loss",  # kill/hang a device worker
+    "slow",  # delay a device worker (straggler; configurable seconds)
     "slow_rung",  # delay an engine rung's entry (deadline pressure)
     "overload",  # delay a serving worker (fill the admission queue)
 )
@@ -79,6 +92,10 @@ _active: List[Fault] = []
 
 def active() -> bool:
     return bool(_active)
+
+
+def active_kinds() -> tuple:
+    return tuple(sorted({f.kind for f in _active}))
 
 
 @contextlib.contextmanager
@@ -169,6 +186,54 @@ def capacity_override(site: str, default) -> Any:
     return int(f.params.get("budget", 1))
 
 
+def _fire_device_fault(kind: str, site: str, device: int) -> Optional[Fault]:
+    """Match-and-consume for per-device fault kinds: like
+    :func:`should_fire` plus an optional ``device`` param filter so one
+    armed fault can target a single mesh worker."""
+    for f in _active:
+        if f.kind != kind:
+            continue
+        if f.site is not None and f.site not in site:
+            continue
+        if "device" in f.params and int(f.params["device"]) != device:
+            continue
+        if f.times is not None and f.fired >= f.times:
+            continue
+        f.fired += 1
+        f.hits.append(site)
+        return f
+    return None
+
+
+def maybe_device_loss(site: str, *, device: int = 0) -> None:
+    """``device_loss`` fault, in-process flavor: raise a typed
+    :class:`~repro_torch.core.resilience.DeviceLost` at a supervisor
+    dispatch site (the subprocess flavor is :func:`worker_env`). Site
+    labels carry the round and worker index
+    (``distributed.peel.round<r>.dev<d>``), so ``site="round3"`` kills
+    exactly one round boundary and ``device=1`` exactly one worker."""
+    if not _active:
+        return
+    f = _fire_device_fault("device_loss", site, device)
+    if f is not None:
+        from ..core.resilience import DeviceLost
+
+        raise DeviceLost(
+            f"injected device loss at {site}", device=device, attempts=1
+        )
+
+
+def maybe_slow(site: str, *, device: int = 0) -> None:
+    """``slow`` fault, in-process flavor: sleep ``delay`` seconds
+    (default 0.25) at a supervisor dispatch site, a straggler the
+    per-round deadline must catch."""
+    if not _active:
+        return
+    f = _fire_device_fault("slow", site, device)
+    if f is not None:
+        time.sleep(float(f.params.get("delay", 0.25)))
+
+
 def maybe_slow_rung(site: str) -> None:
     """``slow_rung`` fault: sleep ``delay`` seconds (default 0.05) at
     an engine rung's entry (sites ``count.<engine>``), burning a
@@ -190,3 +255,28 @@ def maybe_overload(site: str) -> None:
     f = should_fire("overload", site)
     if f is not None:
         time.sleep(float(f.params.get("delay", 0.05)))
+
+
+def worker_env(env: dict, *, device: int = 0,
+               site: str = "distributed.worker") -> dict:
+    """``device_loss`` / ``slow`` faults, subprocess flavor: mark a
+    device worker's next launch attempt via the env vars its preamble
+    checks. ``device_loss`` -> ``mode="exit"`` (default) dies
+    immediately with a nonzero code, ``mode="hang"`` sleeps past the
+    per-attempt timeout; ``slow`` -> the worker sleeps ``delay`` seconds
+    (default 0.25) before running its payload. A ``device`` param
+    restricts either fault to one worker index."""
+    if not _active:
+        return env
+    f = _fire_device_fault("device_loss", site, device)
+    if f is not None:
+        env = dict(env)
+        env["REPRO_FAULT_DEVICE_LOSS"] = str(f.params.get("mode", "exit"))
+        return env
+    f = _fire_device_fault("slow", site, device)
+    if f is not None:
+        env = dict(env)
+        env["REPRO_FAULT_DEVICE_SLOW"] = str(
+            float(f.params.get("delay", 0.25))
+        )
+    return env

@@ -9,8 +9,12 @@ PyTorch/CUDA port against, computed by the JAX package's host engines
     sha256 of the int64 tip numbers, ``rounds``, ``sub_rounds``);
   - ``PEEL_WINGS`` = ``powerlaw_bipartite(20_000, 15_000, 200_000,
     seed=7)`` and ``PEEL_WINGS_HOST`` = ``powerlaw_bipartite(5_000,
-    4_000, 40_000, seed=7)``: wing decomposition in exact mode (sha256
-    of the int64 wing numbers, ``rounds``).
+    4_000, 40_000, seed=7)``: wing decomposition in exact and in range
+    mode (sha256 of the int64 wing numbers, ``rounds``), the range
+    entry being the round data of the supervised distributed rung;
+  - ``PEEL_WINGS_HOST`` also pins its tip decomposition under
+    ``tips`` (side, exact and range mode), which the stored-wedge
+    decomposition ``peel_tips_stored`` must reproduce.
 
 Every graph also records its edge count ``m`` and content hash, which a
 CPU test holds against the port's own generator.
@@ -31,7 +35,11 @@ jax.config.update("jax_enable_x64", True)
 
 import numpy as np  # noqa: E402
 
-from repro.core.peel import peel_tips, peel_wings  # noqa: E402
+from repro.core.peel import (  # noqa: E402
+    peel_tips,
+    peel_tips_stored,
+    peel_wings,
+)
 from repro.data.graphs import powerlaw_bipartite  # noqa: E402
 
 GRAPHS = {
@@ -62,6 +70,16 @@ def describe(res) -> dict:
     }
 
 
+def tips_entry(g) -> dict:
+    """Side, exact and range entries of one tip decomposition."""
+    ex = peel_tips(g)
+    rg = peel_tips(g, peel_mode="range")
+    assert np.array_equal(ex.numbers, rg.numbers)
+    assert rg.sub_rounds == ex.rounds
+    return {"side": int(ex.side), "exact": describe(ex),
+            "range": describe(rg)}
+
+
 def main() -> int:
     out = {"how": COMMAND, "engine": "host", "count_dtype": "int64"}
     for name, spec in GRAPHS.items():
@@ -76,15 +94,17 @@ def main() -> int:
         }
         t0 = time.perf_counter()
         if name == "PEEL_TIPS":
-            ex = peel_tips(g)
-            rg = peel_tips(g, peel_mode="range")
+            entry.update(tips_entry(g))
+        else:
+            ex = peel_wings(g)
+            rg = peel_wings(g, peel_mode="range")
             assert np.array_equal(ex.numbers, rg.numbers)
             assert rg.sub_rounds == ex.rounds
-            entry["side"] = int(ex.side)
             entry["exact"] = describe(ex)
             entry["range"] = describe(rg)
-        else:
-            entry["exact"] = describe(peel_wings(g))
+        if name == "PEEL_WINGS_HOST":
+            entry["tips"] = tips_entry(g)
+            assert describe(peel_tips_stored(g)) == entry["tips"]["exact"]
         out[name] = entry
         print(json.dumps({name: entry,
                           "seconds": round(time.perf_counter() - t0, 1)}),

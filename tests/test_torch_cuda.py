@@ -574,3 +574,109 @@ def test_service_on_card_matches_cpu(card):
             assert used["fused_count_tiles"] == 1
         else:
             assert used["bucket_update"] > 0
+
+
+# ---------------------------------------------------------------------------
+# Distributed execution on one card: workers share cuda:0, each on its
+# own stream
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["tips", "stored", "wings"])
+def test_supervised_peel_four_workers_on_card(card, kind):
+    """Four supervised workers on one card give the CPU run's numbers,
+    round data and report rows; every sub-round with a frontier is one
+    ``bucket_update`` launch (the reduction), and only the seed scan
+    takes ``bucket_min`` here."""
+    from repro_torch.core import CheckpointStore
+
+    g = powerlaw_bipartite(600, 500, 4000, seed=7)
+    fn = {"tips": peel_tips, "stored": peel_tips_stored,
+          "wings": peel_wings}[kind]
+    want = fn(g, devices=4, device="cpu")
+    ops.reset_launches()
+    store = CheckpointStore()
+    got = fn(g, devices=4, checkpoint=store,
+             count_kwargs={"engine": "fused_cuda"}, device=card)
+    used = dict(ops.LAUNCHES)
+    assert got.report.final_rung == "distributed"
+    assert got.report.retries == 0
+    assert np.array_equal(got.numbers, want.numbers)
+    assert (got.rounds, got.sub_rounds) == (want.rounds, want.sub_rounds)
+    assert np.array_equal(got.round_sizes, want.round_sizes)
+    assert [c.attempts[0].detail for c in got.report.children] == [
+        c.attempts[0].detail for c in want.report.children]
+    assert 0 < used["bucket_update"] <= got.sub_rounds
+    assert used["fused_count_tiles"] == 1
+    assert store.saved == got.rounds + 1
+
+
+def test_supervisor_reduction_matches_plain_on_card(card):
+    """The supervisor's reduction of decrement batches made on worker
+    streams: one ``bucket_update`` launch over the concatenated batches
+    equals its plain version on the same inputs."""
+    from repro_torch.core.distributed import PeelSupervisor, _RoundState
+    from repro_torch.core.pipeline import plan_peel
+
+    rng = np.random.default_rng(5)
+    n = 45_000
+    counts = rng.integers(0, 1 << 40, n).astype(np.int64)
+    plan = plan_peel("w", expansion="peel_tips_2hop", engine="host",
+                     aggregation="sort", n_out=n, dtype="int64")
+
+    def subtract(payload, device):
+        (idx,) = payload
+        t = torch.as_tensor(idx, device=device)
+        return t, (t % 7).to(torch.int64)
+
+    sup = PeelSupervisor("w", plan, counts, expand=None, subtract=subtract,
+                         devices=4, device=card)
+    st = sup._state(counts, rng.random(n) < 0.9, np.zeros(n, np.int64),
+                    kappa=0, hi=0, rounds=0, subr=0, sizes=[])
+    idx = [rng.integers(-5, n + 5, k) for k in (70_000, 0, 1, 33_278)]
+    batches = [sup._device_task(0, d, (i,)) for d, i in enumerate(idx)]
+    b0, alive = st.b.clone(), st.alive_d.clone()
+    before = ops.LAUNCHES["bucket_update"]
+    mn = sup._reduce(st, batches)
+    assert ops.LAUNCHES["bucket_update"] == before + 1
+    cat = torch.as_tensor(np.concatenate(idx), device=card)
+    want_b, want_mn, _ = ref.bucket_update_ref(b0, alive, cat, cat % 7)
+    _equal([st.b, mn], [want_b, want_mn])
+
+
+def test_distributed_count_four_workers_on_card(card):
+    from repro_torch.core.distributed import distributed_count
+    from repro_torch.launch.mesh import make_test_mesh
+
+    g = powerlaw_bipartite(800, 600, 6000, seed=2)
+    want = count_butterflies(g, mode="all", device="cpu",
+                             count_dtype=torch.int64)
+    mesh = make_test_mesh((4,), ("data",), device=card)
+    assert all(d == torch.device("cuda", 0) for d in mesh.workers())
+    for mode in ("global", "vertex", "edge"):
+        ops.reset_launches()
+        out, rg = distributed_count(g, mesh, mode=mode, max_chunk=256,
+                                    count_dtype=torch.int64)
+        assert ops.LAUNCHES["fused_count_tiles"] == 4
+        out = out.cpu().numpy()
+        if mode == "global":
+            assert int(out) == int(want.total)
+        elif mode == "vertex":
+            assert np.array_equal(out[rg.rank_of_u], want.per_u)
+            assert np.array_equal(out[rg.rank_of_v], want.per_v)
+        else:
+            assert np.array_equal(out, want.per_edge)
+
+
+def test_supervised_peel_int64_min_on_card(card):
+    """Counts above INT32_MAX: the kernels' min is clamped, the
+    supervisor's κ stays exact."""
+    nv = 65537
+    e = np.asarray([(u, v) for u in (0, 1) for v in range(nv)]
+                   + [(2, 0), (2, 1)], np.int64)
+    c = np.array([2147516417, 2147516417, 2], np.int64)
+    g = BipartiteGraph(3, nv, e)
+    want = peel_tips(g, counts=c, side=0, devices=2, device="cpu")
+    got = peel_tips(g, counts=c, side=0, devices=2, device=card)
+    assert np.array_equal(got.numbers, want.numbers)
+    assert list(got.numbers) == [2147516416, 2147516416, 2]

@@ -2,7 +2,10 @@
 ``src/repro_torch/`` or ``chip_smoke.py`` imports ``jax`` or the
 reference package ``repro``, and the concrete kernel bindings
 (``repro_torch.kernels.cuda``) are imported only by the dispatch module
-``repro_torch/kernels/ops.py``."""
+``repro_torch/kernels/ops.py``. The reference's rule R2
+(``scripts/check_layering.py``, which scans only ``src/repro``) holds
+for the port too: ``repro_torch.core`` never imports
+``repro_torch.launch``."""
 import ast
 import os
 
@@ -16,6 +19,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")
 KERNEL_MODULES = {"repro_torch.kernels.cuda"}
 DISPATCH = "repro_torch.kernels.ops"
+CORE = "repro_torch.core"
+LAUNCH = "repro_torch.launch"
 
 
 def _module_name(path):
@@ -77,3 +82,19 @@ def test_only_ops_imports_the_kernel_bindings():
         if KERNEL_MODULES & set(_imports(p))
     }
     assert importers == {DISPATCH}
+
+
+def test_core_never_imports_launch():
+    """R2: the algorithm layer stays runnable without the launch
+    substrate; ``launch.mesh`` builds the ``core.device.DeviceMesh``
+    that ``core.distributed`` takes, never the other way round."""
+    core = [p for p in _files()
+            if p.startswith(PKG) and _module_name(p).startswith(CORE)]
+    assert any(p.endswith("distributed.py") for p in core)
+    for path in core:
+        for mod in _imports(path):
+            assert not (mod == LAUNCH or mod.startswith(LAUNCH + ".")), (
+                path, mod)
+    launch = [p for p in _files()
+              if p.startswith(PKG) and _module_name(p).startswith(LAUNCH)]
+    assert any(p.endswith(os.path.join("launch", "mesh.py")) for p in launch)

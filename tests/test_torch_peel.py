@@ -307,21 +307,34 @@ def test_ragged_helpers_equal_reference(seed):
     assert all(te in set(roff.tolist()) for _ts, te in bounds)
 
 
-def test_out_of_slice_knobs_raise(case):
-    """The distributed rung's knobs are still refused, on all three
-    entry points, naming the ROADMAP step that ports them; unknown knob
-    values are ValueErrors."""
+def test_out_of_slice_knobs_raise(case, tmp_path):
+    """The distributed rung's knobs, refused before the rung was ported,
+    now run it on all three entry points (``test_torch_distributed.py``
+    holds it against the reference); without ``devices`` they change
+    nothing. A worker count below 1 and unknown knob values are
+    ValueErrors."""
     g = case.g
     calls = ((peel_tips, dict(counts=case.tip_counts, side=case.side)),
              (peel_tips_stored, dict(counts=case.tip_counts,
                                      side=case.side)),
              (peel_wings, dict(counts=case.wing_counts)))
-    for kw in (dict(devices=2), dict(devices="auto"),
-               dict(checkpoint="ckpt"), dict(deadline_s=1.0),
-               dict(round_deadline_s=1.0)):
-        for fn, args in calls:
-            with pytest.raises(NotImplementedError, match="step 7"):
-                fn(g, device="cpu", **args, **kw)
+    for i, (fn, args) in enumerate(calls):
+        kw = dict(devices=2, checkpoint=str(tmp_path / str(i)),
+                  deadline_s=600.0, round_deadline_s=60.0)
+        r = fn(g, device="cpu", **args, **kw)
+        assert r.report.final_rung == "distributed"
+        assert len(r.report.children) == 2
+        assert os.listdir(tmp_path / str(i))
+        want = case.wings if fn is peel_wings else case.tips
+        assert np.array_equal(r.numbers, np.asarray(want["range"].numbers,
+                                                    np.int64))
+        plain = fn(g, device="cpu", checkpoint="unused", **args)
+        assert plain.report.final_rung == "host" and not plain.report.children
+        with pytest.raises(ValueError, match="devices"):
+            fn(g, device="cpu", devices=0, **args)
+    auto = peel_tips(g, counts=case.tip_counts, side=case.side,
+                     devices="auto", device="cpu")
+    assert len(auto.report.children) == 1
     with pytest.raises(ValueError, match="decrease_key"):
         peel_tips(g, counts=case.tip_counts, decrease_key="heap",
                   device="cpu")

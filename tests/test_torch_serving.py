@@ -497,7 +497,7 @@ def test_admission_shed_is_synchronous_and_typed():
 
 def test_overload_fault_fires_on_the_worker():
     """The ``overload`` fault kind: armed, it fires once per query at
-    the service's worker site; unarmed kinds are refused."""
+    the service's worker site; unknown kinds are refused."""
     assert "overload" in faults.KINDS
     service = ButterflyService(workers=1, device="cpu", clock=FakeClock())
     service.register("g", G1)
@@ -510,7 +510,7 @@ def test_overload_fault_fires_on_the_worker():
     finally:
         service.close()
     with pytest.raises(ValueError, match="fault kind"):
-        with faults.inject("device_loss"):
+        with faults.inject("meteor_strike"):
             pass
 
 
