@@ -87,7 +87,21 @@ Phases, each of which fails the run loudly:
      supervised tip run whose ``deadline_s`` expires mid-run (a ``slow``
      fault at round 3), which must leave committed rounds that a second
      run resumes and ends on the pin;
- 11. print one ``{"kernels": [...]}`` line, the card line, and the final
+ 11. the port's three examples on the card, in this process, at their
+     default sizes (``examples/torch_quickstart.py``,
+     ``examples/torch_peeling_decomposition.py`` and
+     ``examples/torch_end_to_end_analytics.py`` with ``--device cuda``,
+     the last at 1,000,000 edges and a 30,000-edge peel), each with the
+     launch counts zeroed just before it and read just after: every
+     value an example returns and every line it prints (bracketed
+     timings removed) must equal the pin
+     ``tests/data/torch_examples_reference.json``, computed by the JAX
+     package's library for the same calls; each prints its wall, its
+     launches and its peak memory; the quickstart and the end-to-end
+     example must launch ``fused_count_tiles`` (one per repetition of an
+     estimate), the peeling example ``bucket_min`` (one per round of its
+     host wing loop; its counts run on the default ``torch`` engine);
+ 12. print one ``{"kernels": [...]}`` line, the card line, and the final
      ``{"ok": true, "device": {...}}`` line.
 
 Every kernel row has ``ms`` (CUDA events around back-to-back calls,
@@ -98,9 +112,10 @@ clock around a run of calls with no synchronize inside; no wrapper
 reads a result back). ``fused_count_tiles`` is timed with its host work
 list planned beforehand, as the counting path plans it.
 
-Bounds use the H100 SXM's published rates: 3.35 TB/s of HBM bandwidth,
-and 16.7e12 int32 operations/s (64 INT32 lanes per SM x 132 SMs x
-1.98 GHz, Hopper architecture white paper).
+Bounds use the H100 SXM's published rates from the port's roofline model
+(``repro_torch.roofline.model``): ``HBM_BW``, 3.35 TB/s of HBM
+bandwidth, and ``INT32_OPS``, 16.7e12 int32 operations/s (64 INT32
+lanes per SM x 132 SMs x 1.98 GHz, Hopper architecture white paper).
 """
 import hashlib
 import json
@@ -116,15 +131,17 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.roofline.model import HBM_BW, INT32_OPS  # noqa: E402
+
 REFERENCE = os.path.join(ROOT, "tests", "data", "torch_smoke_reference.json")
 PEEL_REFERENCE = os.path.join(ROOT, "tests", "data",
                               "torch_peel_reference.json")
 APPROX_REFERENCE = os.path.join(ROOT, "tests", "data",
                                 "torch_approx_reference.json")
 APPROX_FIELDS = ("estimate", "stddev", "ci95", "p", "n_samples", "kept_m")
+EXAMPLES_REFERENCE = os.path.join(ROOT, "tests", "data",
+                                  "torch_examples_reference.json")
 GRAPH = dict(n_u=200_000, n_v=150_000, m=2_000_000, seed=7)
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
 KERNEL_SOURCES = {
     "fused_count_tiles": ("src/repro_torch/kernels/csrc/fused_count_tiles.cu",
                           "src/repro/kernels/wedge_fused.py:226"),
@@ -172,6 +189,15 @@ PEEL_PATH = (
      "bucket_update"),
 )
 TAPPED = ("bucket_min", "bucket_update")
+# (example, its entry in the pin, its arguments: the defaults, the
+# kernels it must launch)
+EXAMPLES = (
+    ("torch_quickstart", "quickstart", [], ("fused_count_tiles",)),
+    ("torch_peeling_decomposition", "peeling_decomposition", [],
+     ("bucket_min",)),
+    ("torch_end_to_end_analytics", "end_to_end_analytics",
+     ["--edges", "1000000", "--peel-edges", "30000"], ("fused_count_tiles",)),
+)
 # Names of each kernel's launches in the profiler's device rows.
 KERNEL_SYMBOLS = {
     "fused_count_tiles": ("::fused_light_kernel", "::fused_heavy_kernel"),
@@ -265,8 +291,8 @@ def timings(name: str, fn, calls: int) -> dict:
 
 
 def bound(nbytes: float, ops: float) -> tuple:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BW * 1e3
+    t_ops = ops / INT32_OPS * 1e3
     if t_bytes >= t_ops:
         return t_bytes, "bytes"
     return t_ops, "operations"
@@ -1364,6 +1390,60 @@ def distributed_phase(g, wedges, dev, launches) -> None:
                                    tref["exact"]["sha256_int64"]})
 
 
+def examples_phase(launches) -> None:
+    """Phase 11: the port's examples on the card, each held against the
+    pinned values and printed lines of the JAX library's same calls."""
+    import contextlib
+    import importlib.util
+    import io
+    import re
+
+    from repro_torch.kernels import ops
+
+    with open(EXAMPLES_REFERENCE) as f:
+        ref = json.load(f)
+    for script, key, argv, kernels in EXAMPLES:
+        entries = ref[key] if isinstance(ref[key], list) else [ref[key]]
+        want = next(e for e in entries if e["argv"] == argv)
+        spec = importlib.util.spec_from_file_location(
+            script, os.path.join(ROOT, "examples", f"{script}.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                values = module.main(argv + ["--device", "cuda"])
+            torch.cuda.synchronize()
+        finally:
+            wall = time.perf_counter() - t0
+            for line in out.getvalue().splitlines():
+                print(f"  | {line}", flush=True)
+        used = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"example {script} {argv}: wall {wall:.3f} s, peak "
+              f"{peak:.3f} GiB, launches {used}", flush=True)
+        if values != want["values"]:
+            fail(f"example {script} returned {values}, not the pinned "
+                 f"{want['values']}")
+        lines = [re.sub(r"\[[^\]]*\]", "", line).rstrip()
+                 for line in out.getvalue().splitlines()]
+        if lines != want["lines"]:
+            fail(f"example {script} printed {lines}, not the pinned "
+                 f"{want['lines']}")
+        for name in kernels:
+            if used[name] == 0:
+                fail(f"example {script} ran without launching {name}")
+        for name, n in used.items():
+            launches[name] += n
+    print("examples: every returned value and printed line equal to the "
+          "pinned JAX library values", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs "
@@ -1496,8 +1576,12 @@ def main() -> int:
     phase(10)
     distributed_phase(g, W, dev, launches)
 
-    # -- 11. report -----------------------------------------------------
+    # -- 11. the examples ------------------------------------------------
     phase(11)
+    examples_phase(launches)
+
+    # -- 12. report -----------------------------------------------------
+    phase(12)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         row = rows[name]

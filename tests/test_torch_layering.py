@@ -1,12 +1,14 @@
 """Import layering of the PyTorch/CUDA port: nothing in
-``src/repro_torch/`` or ``chip_smoke.py`` imports ``jax`` or the
-reference package ``repro``, and the concrete kernel bindings
+``src/repro_torch/``, ``chip_smoke.py`` or the port's examples
+``examples/torch_*.py`` imports ``jax`` or the reference package
+``repro``, and the concrete kernel bindings
 (``repro_torch.kernels.cuda``) are imported only by the dispatch module
 ``repro_torch/kernels/ops.py``. The reference's rule R2
 (``scripts/check_layering.py``, which scans only ``src/repro``) holds
 for the port too: ``repro_torch.core`` never imports
 ``repro_torch.launch``."""
 import ast
+import glob
 import os
 
 import pytest
@@ -59,12 +61,14 @@ def _files():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield from sorted(glob.glob(os.path.join(ROOT, "examples", "torch_*.py")))
 
 
 def test_port_files_are_found():
     files = list(_files())
-    assert len(files) >= 15
+    assert len(files) >= 46
     assert any(f.endswith(os.path.join("kernels", "ops.py")) for f in files)
+    assert sum(os.sep + "examples" + os.sep in f for f in files) == 3
 
 
 @pytest.mark.parametrize("path", sorted(_files()),
