@@ -1,0 +1,14 @@
+"""Seconds of one decomposition before its ladder: the mean over the
+window's decompositions made after the trace stopped of the program's
+``peel.count`` + ``peel.csr`` + ``peel.level2`` + ``peel.plan`` spans."""
+UNIT = "s"
+SPANS = ("peel.count", "peel.csr", "peel.level2", "peel.plan")
+
+
+def read(run):
+    t = []
+    for c in run.steady("peel"):
+        ph = getattr(c["report"], "phases", {})
+        if all(k in ph for k in SPANS):
+            t.append(sum(ph[k].s for k in SPANS))
+    return sum(t) / len(t) if t else None

@@ -56,6 +56,7 @@ import torch
 from ..testing import faults as _faults
 from . import pipeline as _pipeline
 from . import resilience as _res
+from . import spans as _spans
 from .aggregate import table_bits_for
 from .device import resolve_device
 from .graph import BipartiteGraph, RankedGraph, preprocess
@@ -364,7 +365,8 @@ def _count_ranked(rg, *, aggregation, mode, cache_opt, dtype, batch_rows,
         # rungs resolve to sort (both strategies are exact)
         aggregation = "sort"
     dg = device_graph(rg, device)
-    wv_slots = host_wedge_counts(rg, direction)
+    with _spans.span("count.wedge_counts"):
+        wv_slots = host_wedge_counts(rg, direction)
     if aggregation in BATCH_AGGREGATIONS:
         if engine != "torch":
             raise ValueError(
@@ -377,18 +379,19 @@ def _count_ranked(rg, *, aggregation, mode, cache_opt, dtype, batch_rows,
             rows=int(batch_rows), target=int(batch_target), mode=mode,
             direction=direction, dtype=dtype,
         )
-    plan = _plan_from_knobs(
-        rg,
-        aggregation=aggregation,
-        mode=mode,
-        direction=direction,
-        dtype=dtype,
-        engine=engine,
-        max_chunk=max_chunk,
-        hash_bits=hash_bits,
-        device=device,
-        wv_slots=wv_slots,
-    )
+    with _spans.span("count.plan"):
+        plan = _plan_from_knobs(
+            rg,
+            aggregation=aggregation,
+            mode=mode,
+            direction=direction,
+            dtype=dtype,
+            engine=engine,
+            max_chunk=max_chunk,
+            hash_bits=hash_bits,
+            device=device,
+            wv_slots=wv_slots,
+        )
     if plan is not None:
         return _pipeline.execute_count_plan(dg, plan, rg.offsets, wv_slots)
     # materializing torch/cuda path: the whole wedge array in one batch
@@ -486,11 +489,14 @@ def interpret_counts(
 
 
 def _to_host(out):
-    if isinstance(out, tuple):
-        return tuple(t.cpu().numpy() for t in out)
-    return out.cpu().numpy()
+    """The rung's counts on the host: the blocking device-to-host copy."""
+    with _spans.span("count.to_host"):
+        if isinstance(out, tuple):
+            return tuple(t.cpu().numpy() for t in out)
+        return out.cpu().numpy()
 
 
+@_spans.entry("count")
 def count_butterflies(
     g: BipartiteGraph,
     *,
@@ -522,14 +528,18 @@ def count_butterflies(
     front when even int64 accumulation could silently wrap. The batch
     aggregations (``batch_rows`` vertices per block) run one rung,
     ``torch``. ``device=None`` means CUDA; pass ``device="cpu"`` for the
-    host.
+    host. ``result.report.phases``, ``.counters`` and ``.timeline`` hold
+    what the call's spans recorded (``core/spans.py``).
     """
     device = resolve_device(device)
     policy = _res.resolve_policy(resilience)
-    ordering = make_order(g, order, device=device)
-    rg = preprocess(g, ordering, order_name=order)
+    with _spans.span("count.rank"):
+        ordering = make_order(g, order, device=device)
+    with _spans.span("count.csr"):
+        rg = preprocess(g, ordering, order_name=order)
     if policy.validate_results:
-        g.accumulator_preflight()
+        with _spans.span("count.preflight"):
+            g.accumulator_preflight()
     ladder = COUNT_LADDERS.get(engine, (engine,))
     if aggregation in BATCH_AGGREGATIONS:
         ladder = (engine,)  # batch fuses its own accumulation: one rung
@@ -555,31 +565,35 @@ def count_butterflies(
             )
             return _to_host(out)
 
-        return _res.Rung(eng, run)
+        return _res.Rung(eng, _spans.spanned("count.rung", run))
 
     # report-only planning pass for the requested engine: what the first
     # rung will execute, recorded before any rung runs
-    try:
-        plan = _plan_from_knobs(
-            rg,
-            aggregation=aggregation,
-            mode=mode,
-            direction="high" if cache_opt else "low",
-            dtype=torch.int32 if count_dtype is None else count_dtype,
-            engine=engine,
-            max_chunk=max_chunk,
-            hash_bits=None,
-            device=device,
-        )
-    except _res.ResilienceError:
-        plan = None
+    with _spans.span("count.plan_report"):
+        try:
+            plan = _plan_from_knobs(
+                rg,
+                aggregation=aggregation,
+                mode=mode,
+                direction="high" if cache_opt else "low",
+                dtype=torch.int32 if count_dtype is None else count_dtype,
+                engine=engine,
+                max_chunk=max_chunk,
+                hash_bits=None,
+                device=device,
+            )
+        except _res.ResilienceError:
+            plan = None
+    with _spans.span("count.validate"):
+        validate = count_validator(g, mode)
 
     out, report = _pipeline.execute_ladder(
         "count",
         policy,
         [_make_rung(e) for e in ladder],
-        count_validator(g, mode),
+        _spans.spanned("count.validate", validate),
         plan=plan,
     )
-    res = interpret_counts(rg, g, mode, out, aggregation, order)
+    with _spans.span("count.interpret"):
+        res = interpret_counts(rg, g, mode, out, aggregation, order)
     return policy.attach(res, report)

@@ -82,6 +82,13 @@ snapshot per committed round for lost-worker rollback and resume;
 ``deadline_s=`` bounds the whole run. The numbers are every other
 engine's; ``rounds`` and ``sub_rounds`` follow ``peel_mode="range"``.
 
+Each decomposition is one call of the spans in ``core/spans.py``: the
+root ``peel``, ``peel.rung`` per ladder attempt and ``peel.validate``;
+the device round loop's ``peel.round.select``, ``peel.round.fetch`` and
+``peel.round.expand`` with the ``rounds`` counter, and ``peel.finish``;
+``peel_tips`` adds ``peel.count``, ``peel.csr``, ``peel.level2`` and
+``peel.plan``, and its device rung ``peel.setup``.
+
 Double-count avoidance (paper §4.3.1/§4.3.2): peel-set members are
 processed against a virtual rank order (their id); an element of the
 current peel set is "present" for a lower-id member's enumeration and
@@ -89,6 +96,7 @@ current peel set is "present" for a lower-id member's enumeration and
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -98,6 +106,7 @@ from ..kernels import ops as _kops
 from ..testing import faults as _faults
 from . import distributed as _dist
 from . import resilience as _res
+from . import spans as _spans
 from .count import count_butterflies, default_count_dtype
 from .device import resolve_device, visible_count
 from .graph import BipartiteGraph
@@ -411,44 +420,48 @@ def _peel_tips_device_run(g, counts, side, aggregation, stored, max_frontier,
         note.append("device engine unavailable: empty side or counts "
                     "beyond int32")
         return None
-    budget, tb = _budgets(max_frontier, tile_budget, budget_shrinks)
-    if stored:
-        woff, w_u2 = csr
-        lvl1, lvl2 = 0, int(woff[-1])
-        if lvl2 >= _I32_MAX:
-            note.append("device engine unavailable: stored wedge total "
-                        "beyond int32 indexing")
-            return None
-        work1, work2 = np.zeros(n_side, np.int64), np.diff(woff)
-        off_d = torch.as_tensor(woff, device=device)
-        # the stored wedges go up as they are, 4 bytes each
-        nbr_d = torch.as_tensor(w_u2, device=device)
-    else:
-        off, nbr = csr
-        deg = np.diff(off)
-        if w2 is None:
-            w2 = _level2_totals(off, nbr, base, n_side)
-        lvl1 = int(deg[base: base + n_side].sum())
-        lvl2 = int(w2.sum())
-        if lvl2 >= _I32_MAX or 2 * g.m >= _I32_MAX:
-            note.append("device engine unavailable: expansion totals "
-                        "beyond int32 indexing")
-            return None
-        work1, work2 = deg[base: base + n_side], w2
-        off_d = torch.as_tensor(off, device=device)
-        nbr_d = torch.as_tensor(nbr, device=device)
-        deg_d = torch.as_tensor(deg, device=device)
-    # level-1 and level-2 (or stored) frontier sizes per vertex
-    work = torch.stack([torch.as_tensor(work1, device=device),
-                        torch.as_tensor(work2, device=device)])
-    materialize = subtract == "materialize"
-    adaptive = capacity_schedule == "adaptive"
-    caps = {"cap1": 128 if stored else _pow2_pad(min(lvl1, budget)),
-            "cap2": _pow2_pad(min(lvl2, budget))}
-    # a fused tile holds the largest single-vertex expansion; the 2x
-    # headroom keeps greedy tiles half full
-    tile_cap = _tip_tile_cap(tb, lvl2, int(work2.max(initial=0)), 2)
-    want_hist = peel_mode == "range" and decrease_key == "bucket"
+    with _spans.span("peel.setup"):
+        budget, tb = _budgets(max_frontier, tile_budget, budget_shrinks)
+        if stored:
+            woff, w_u2 = csr
+            lvl1, lvl2 = 0, int(woff[-1])
+            if lvl2 >= _I32_MAX:
+                note.append("device engine unavailable: stored wedge total "
+                            "beyond int32 indexing")
+                return None
+            work1, work2 = np.zeros(n_side, np.int64), np.diff(woff)
+            off_d = torch.as_tensor(woff, device=device)
+            # the stored wedges go up as they are, 4 bytes each
+            nbr_d = torch.as_tensor(w_u2, device=device)
+        else:
+            off, nbr = csr
+            deg = np.diff(off)
+            if w2 is None:
+                w2 = _level2_totals(off, nbr, base, n_side)
+            lvl1 = int(deg[base: base + n_side].sum())
+            lvl2 = int(w2.sum())
+            if lvl2 >= _I32_MAX or 2 * g.m >= _I32_MAX:
+                note.append("device engine unavailable: expansion totals "
+                            "beyond int32 indexing")
+                return None
+            work1, work2 = deg[base: base + n_side], w2
+            off_d = torch.as_tensor(off, device=device)
+            nbr_d = torch.as_tensor(nbr, device=device)
+            deg_d = torch.as_tensor(deg, device=device)
+        # level-1 and level-2 (or stored) frontier sizes per vertex
+        work = torch.stack([torch.as_tensor(work1, device=device),
+                            torch.as_tensor(work2, device=device)])
+        materialize = subtract == "materialize"
+        adaptive = capacity_schedule == "adaptive"
+        caps = {"cap1": 128 if stored else _pow2_pad(min(lvl1, budget)),
+                "cap2": _pow2_pad(min(lvl2, budget))}
+        # a fused tile holds the largest single-vertex expansion; the 2x
+        # headroom keeps greedy tiles half full
+        tile_cap = _tip_tile_cap(tb, lvl2, int(work2.max(initial=0)), 2)
+        want_hist = peel_mode == "range" and decrease_key == "bucket"
+        b0 = torch.tensor(counts, device=device)
+        state = _init_state(b0, n_side, decrease_key=decrease_key,
+                            peel_mode=peel_mode, lvl1=lvl1, lvl2=lvl2)
 
     def expand(st, peel, alive_prev, n_peel, tot):
         total1, total2 = tot
@@ -475,8 +488,9 @@ def _peel_tips_device_run(g, counts, side, aggregation, stored, max_frontier,
             if total2 > tile_cap:
                 # tiles cut at peeled-vertex boundaries, planned on the
                 # host from the per-u1 frontier prefix
-                roff_u = np.asarray(_fetch(
-                    st, [roff2 if stored else _prefix(work[1][ids])]))
+                vals = [roff2 if stored else _prefix(work[1][ids])]
+                with _spans.span("peel.round.fetch"):
+                    roff_u = np.asarray(_fetch(st, vals))
             bounds = _tile_bounds(total2, tile_cap, roff_u)
 
         def tile_fn(bt, ts, te):
@@ -509,9 +523,6 @@ def _peel_tips_device_run(g, counts, side, aggregation, stored, max_frontier,
         if materialize:
             caps["cap2"] = min(caps["cap2"], _pow2_pad(st.rem[1]))
 
-    b0 = torch.tensor(counts, device=device)
-    state = _init_state(b0, n_side, decrease_key=decrease_key,
-                        peel_mode=peel_mode, lvl1=lvl1, lvl2=lvl2)
     st = _drive_segments(
         lambda s: _device_round_loop(s, expand, work,
                                      decrease_key=decrease_key,
@@ -825,8 +836,13 @@ def _run_ladder(kind, policy, rungs, counts, plan, audit, dist=()):
     counted: host syncs and capacity segments summed over the attempts,
     and the largest round frontier; then fold in the audit of a
     supervised distributed run (``dist``)."""
+    rungs = [dataclasses.replace(r, run=_spans.spanned("peel.rung", r.run))
+             for r in rungs]
+    with _spans.span("peel.validate"):
+        validate = _peel_validator(counts)
     out, report = _execute_ladder(kind, policy, rungs,
-                                  _peel_validator(counts), plan=plan)
+                                  _spans.spanned("peel.validate", validate),
+                                  plan=plan)
     report.host_syncs = sum(a[0] for a in audit)
     report.segments = sum(a[1] for a in audit)
     report.frontier_lanes = max((a[2] for a in audit), default=0)
@@ -835,6 +851,7 @@ def _run_ladder(kind, policy, rungs, counts, plan, audit, dist=()):
     return policy.attach(out, report)
 
 
+@_spans.entry("peel")
 def peel_tips(
     g: BipartiteGraph,
     counts: Optional[np.ndarray] = None,
@@ -882,13 +899,17 @@ def peel_tips(
     device = resolve_device(device)
     policy = _res.resolve_policy(resilience)
     hash_bits = _faults.hash_bits_override("peel_tips", hash_bits)
-    side, counts = _side_and_counts(g, counts, side, count_kwargs, device)
-    off, nbr, _ = _csr(g)
+    with _spans.span("peel.count"):
+        side, counts = _side_and_counts(g, counts, side, count_kwargs,
+                                        device)
+    with _spans.span("peel.csr"):
+        off, nbr, _ = _csr(g)
     n_side = g.n_u if side == 0 else g.n_v
     base = 0 if side == 0 else g.n_u
     # shared by the device planner and the host tile plan, so a
     # device -> host descent never recomputes them
-    w2 = _level2_totals(off, nbr, base, n_side)
+    with _spans.span("peel.level2"):
+        w2 = _level2_totals(off, nbr, base, n_side)
     audit: list = []
 
     def run_device(shrinks: int):
@@ -915,12 +936,13 @@ def peel_tips(
                                aggregation, hash_bits, subtract, tile_budget,
                                peel_mode, device, audit)
 
-    plan = _plan_peel(
-        "peel_tips", expansion="peel_tips_2hop", engine=engine,
-        aggregation=aggregation, n_out=n_side, dtype=counts.dtype.name,
-        capacity=_capacity(max_frontier, tile_budget), hash_bits=hash_bits,
-        entity_work=w2,
-    )
+    with _spans.span("peel.plan"):
+        plan = _plan_peel(
+            "peel_tips", expansion="peel_tips_2hop", engine=engine,
+            aggregation=aggregation, n_out=n_side, dtype=counts.dtype.name,
+            capacity=_capacity(max_frontier, tile_budget),
+            hash_bits=hash_bits, entity_work=w2,
+        )
     rungs = [_res.Rung("host", run_host, shrinkable=False)]
     if engine == "device":
         rungs.insert(0, _res.Rung("device", run_device))
@@ -937,6 +959,7 @@ def peel_tips(
     return _run_ladder("peel_tips", policy, rungs, counts, plan, audit, dist)
 
 
+@_spans.entry("peel")
 def peel_tips_stored(
     g: BipartiteGraph,
     counts: Optional[np.ndarray] = None,
@@ -1372,6 +1395,7 @@ def _peel_wings_host(g, counts, off, nbr, uid, peel_mode, device,
     return acct.result(wing, None)
 
 
+@_spans.entry("peel")
 def peel_wings(
     g: BipartiteGraph,
     counts: Optional[np.ndarray] = None,

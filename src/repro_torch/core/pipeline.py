@@ -42,6 +42,7 @@ import torch
 from ..kernels import ops as _kops
 from ..testing import faults as _faults
 from . import resilience as _res
+from . import spans as _spans
 from .aggregate import (
     Groups,
     aggregate_dense,
@@ -740,23 +741,26 @@ def run_fused_cuda_tiles(
             "wedges than the kernel takes in one tile); use "
             "engine='fused'"
         )
-    tb, w_off_h = fused_host_inputs(plan, rg_offsets, wv_slots)
-    work = _kops.fused_work(tb, rg_offsets, w_off_h, dg.device)
-    tot, vert, edge = _kops.fused_count_tiles(
-        tb,
-        dg.offsets,
-        dg.neighbors,
-        dg.edge_src,
-        dg.undirected_id,
-        torch.as_tensor(w_off_h, device=dg.device),
-        tile_cap=plan.chunk_cap,
-        n_pad=dg.n_pad,
-        m=dg.m,
-        direction=plan.direction,
-        mode=mode,
-        work=work,
-    )
-    total, vert, edge = tot.to(dtype), vert.to(dtype), edge.to(dtype)
+    with _spans.span("count.work_list"):
+        tb, w_off_h = fused_host_inputs(plan, rg_offsets, wv_slots)
+        work = _kops.fused_work(tb, rg_offsets, w_off_h, dg.device)
+        w_off = torch.as_tensor(w_off_h, device=dg.device)
+    with _spans.span("count.kernel"):
+        tot, vert, edge = _kops.fused_count_tiles(
+            tb,
+            dg.offsets,
+            dg.neighbors,
+            dg.edge_src,
+            dg.undirected_id,
+            w_off,
+            tile_cap=plan.chunk_cap,
+            n_pad=dg.n_pad,
+            m=dg.m,
+            direction=plan.direction,
+            mode=mode,
+            work=work,
+        )
+        total, vert, edge = tot.to(dtype), vert.to(dtype), edge.to(dtype)
     if mode == "global":
         return total
     if mode == "vertex":
@@ -984,48 +988,60 @@ def device_round_loop(st: LoopState, expand, work, *, decrease_key: str,
     ``shrink_caps`` (the adaptive capacity schedule) the loop leaves
     before a round where :func:`shrink_due` holds, at the reference's
     exit point, so :func:`drive_segments` can re-enter it with smaller
-    capacities; the state carries over as it is."""
+    capacities; the state carries over as it is.
+
+    A round is three spans of the current call (``core/spans.py``):
+    ``peel.round.select`` (the enqueue up to the fetch),
+    ``peel.round.fetch`` and ``peel.round.expand`` (the rest); the
+    ``rounds`` counter follows ``st.rounds``."""
     want_hist = peel_mode == "range" and decrease_key == "bucket"
     dtype = st.b.dtype
+    rounds0 = st.rounds
     while (st.n_alive > 0 and not st.overflow
            and not shrink_due(st, shrink_caps)):
-        if decrease_key == "bucket":
-            mn = st.mn
-        else:
-            mn = _kops.bucket_min(st.b, st.alive)
-        kappa = torch.maximum(st.kappa, mn)
-        peel = st.alive & (st.b <= kappa)
-        values = [mn, peel.sum()]
-        if want_hist:
-            values.append(_kops.lowest_nonempty_bucket(st.hist))
-        host = fetch(st, values + [(work * peel).sum(1)])
-        mn_h, n_peel = host[0], host[1]
-        tot = host[3:] if want_hist else host[2:]
-        st.subr += 1
-        if peel_mode == "range":
-            if mn_h >= st.hi:
-                k_sel = host[2] if want_hist else int(mn_h).bit_length()
-                st.hi = _kops.bucket_upper_bound(k_sel)
+        with _spans.span("peel.round.select"):
+            if decrease_key == "bucket":
+                mn = st.mn
+            else:
+                mn = _kops.bucket_min(st.b, st.alive)
+            kappa = torch.maximum(st.kappa, mn)
+            peel = st.alive & (st.b <= kappa)
+            values = [mn, peel.sum()]
+            if want_hist:
+                values.append(_kops.lowest_nonempty_bucket(st.hist))
+            values.append((work * peel).sum(1))
+        with _spans.span("peel.round.fetch"):
+            host = fetch(st, values)
+        with _spans.span("peel.round.expand"):
+            mn_h, n_peel = host[0], host[1]
+            tot = host[3:] if want_hist else host[2:]
+            st.subr += 1
+            if peel_mode == "range":
+                if mn_h >= st.hi:
+                    k_sel = host[2] if want_hist else int(mn_h).bit_length()
+                    st.hi = _kops.bucket_upper_bound(k_sel)
+                    st.rounds += 1
+                    st.sizes.append(0)
+            else:
                 st.rounds += 1
                 st.sizes.append(0)
-        else:
-            st.rounds += 1
-            st.sizes.append(0)
-        st.sizes[-1] += n_peel
-        st.rem = [r - t for r, t in zip(st.rem, tot)]
-        st.kappa = kappa
-        st.out = torch.where(peel, kappa.to(dtype), st.out)
-        alive_prev = st.alive
-        st.alive = st.alive & ~peel
-        st.n_alive -= n_peel
-        if st.n_alive == 0:
-            break  # nothing left to subtract from
-        st.lanes = max(st.lanes, tot[-1])
-        b, ovf, st.mn, st.hist = expand(st, peel, alive_prev, n_peel, tot)
-        if ovf:
-            st.overflow = True
-        else:
-            st.b = b
+            st.sizes[-1] += n_peel
+            st.rem = [r - t for r, t in zip(st.rem, tot)]
+            st.kappa = kappa
+            st.out = torch.where(peel, kappa.to(dtype), st.out)
+            alive_prev = st.alive
+            st.alive = st.alive & ~peel
+            st.n_alive -= n_peel
+            if st.n_alive == 0:
+                break  # nothing left to subtract from
+            st.lanes = max(st.lanes, tot[-1])
+            b, ovf, st.mn, st.hist = expand(st, peel, alive_prev, n_peel,
+                                            tot)
+            if ovf:
+                st.overflow = True
+            else:
+                st.b = b
+    _spans.add("rounds", st.rounds - rounds0)
     return st
 
 
@@ -1048,8 +1064,9 @@ def drive_segments(run, state: LoopState, adaptive: bool = False,
         if not adaptive or st.n_alive == 0:
             break
         update_caps(st)
-    st.syncs += 1
-    st.out = st.out.cpu().numpy()
+    with _spans.span("peel.finish"):
+        st.syncs += 1
+        st.out = st.out.cpu().numpy()
     return st
 
 

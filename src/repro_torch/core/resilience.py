@@ -33,9 +33,13 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, List, Optional, Sequence
+from typing import (TYPE_CHECKING, Any, Callable, Dict, List, Optional,
+                    Sequence, Tuple)
 
 import torch
+
+if TYPE_CHECKING:
+    from .spans import Phase
 
 __all__ = [
     "ResilienceError",
@@ -282,6 +286,15 @@ class ExecutionReport:
     # straggler re-dispatches); the parent frontend merges them here so
     # the audit trail survives instead of dying with the worker.
     children: List["ExecutionReport"] = dataclasses.field(
+        default_factory=list
+    )
+    # what the entry point's spans and counters recorded over the call
+    # (core/spans.py): name -> Phase(s, n, self_s), name -> sum, and,
+    # only while a torch.profiler session ran, (name, parent, start_ns,
+    # end_ns) per span on the profiler's clock
+    phases: Dict[str, "Phase"] = dataclasses.field(default_factory=dict)
+    counters: Dict[str, int] = dataclasses.field(default_factory=dict)
+    timeline: List[Tuple[str, Optional[str], int, int]] = dataclasses.field(
         default_factory=list
     )
 
