@@ -929,7 +929,7 @@ def service_split(svc, query) -> None:
     from repro_torch.core import count as count_mod, pipeline
     from repro_torch.kernels import ops
 
-    targets = [(count_mod, "device_graph"), (count_mod, "host_wedge_counts"),
+    targets = [(count_mod, "device_graph"), (count_mod, "slot_wedge_counts"),
                (pipeline, "plan_count"), (ops, "fused_work")]
     torch.cuda.synchronize()
     with HostTap(targets) as tap, profile(

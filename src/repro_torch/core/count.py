@@ -14,6 +14,18 @@ pipeline (``core/pipeline.py``): it validates knobs, builds a
 hands it to the shared executors, and interprets the rank-space results
 back into a :class:`CountResult`.
 
+The per-slot wedge counts that plan a count are computed once per call,
+on the device that holds the count's ``DeviceGraph``
+(``wedges.slot_wedge_counts``, span ``count.wedge_counts``), and copied
+to the host once: :func:`count_butterflies` uploads the graph
+once and hands that graph and both copies of the array to its report-only
+planning pass and to every rung attempt (shrink retries, lower rungs, the
+batch aggregations); :func:`count_from_ranked` called alone, as the query
+service calls it, makes its own single pass the same way. The numpy
+``wedges.host_wedge_counts`` gives the same array; it stays the mesh
+planner's (``core/distributed.py``), the planners' default when no array
+is given, and the tests' oracle.
+
 Engines, one-to-one with the reference package's (:data:`ENGINE_MAP`):
 
   - ``"torch"``: the materializing wedge path in plain PyTorch ops.
@@ -62,11 +74,11 @@ from .device import resolve_device
 from .graph import BipartiteGraph, RankedGraph, preprocess
 from .ranking import make_order
 from .wedges import (
+    DeviceGraph,
     auto_chunk_budget,
     device_graph,
     gather_wedges,
     greedy_vertex_blocks,
-    host_wedge_counts,
     shrink_budget,
     slot_wedge_counts,
     wedge_offsets,
@@ -91,6 +103,7 @@ ENGINES = ("torch", "cuda", "fused", "fused_cuda")
 MODES = _pipeline.MODES
 AGGREGATIONS = ("sort", "hash", "histogram", "auto", "batch", "batch_wa")
 BATCH_AGGREGATIONS = ("batch", "batch_wa")
+BATCH_TARGET = 1 << 14  # count_from_ranked's default batch_target
 
 # reference engine name -> port engine name
 ENGINE_MAP = {
@@ -142,6 +155,26 @@ class CountResult(NamedTuple):
     report: Optional["_res.ExecutionReport"] = None  # resilience audit
 
 
+class _SlotWedges(NamedTuple):
+    """One count's graph on its device and its per-slot wedge counts:
+    ``cnt`` on that device, ``host`` its numpy copy for the planners."""
+
+    dg: DeviceGraph
+    direction: str
+    cnt: torch.Tensor  # int64 (e_pad,)
+    host: np.ndarray  # int64 (e_pad,)
+
+
+def _slot_wedges(rg: RankedGraph, direction: str, device) -> _SlotWedges:
+    """Upload ``rg`` and compute its per-slot wedge counts from the
+    uploaded graph, on its device, with one copy to the host: the one
+    wedge-count pass of a count (span ``count.wedge_counts``)."""
+    with _spans.span("count.wedge_counts"):
+        dg = device_graph(rg, device)
+        cnt = slot_wedge_counts(dg, direction)
+        return _SlotWedges(dg, direction, cnt, cnt.cpu().numpy())
+
+
 def _resolve_chunk_budget(max_chunk, device) -> Optional[int]:
     """``max_chunk`` knob: None (no streaming for the materializing
     engines; auto for the fused engines), "auto" (device-memory-derived
@@ -164,7 +197,7 @@ def _plan_from_knobs(
     max_chunk,
     hash_bits: Optional[int],
     device,
-    wv_slots: Optional[np.ndarray] = None,
+    wv_slots: np.ndarray,
 ) -> Optional["_pipeline.WedgePlan"]:
     """Resolve the knob surface into a counting plan: the one place the
     budget rules live. Returns None for the materializing torch/cuda
@@ -175,8 +208,6 @@ def _plan_from_knobs(
     if aggregation in BATCH_AGGREGATIONS:
         return None
     budget = _resolve_chunk_budget(max_chunk, device)
-    if wv_slots is None:
-        wv_slots = host_wedge_counts(rg, direction)
     if engine in ("fused", "fused_cuda"):
         if budget is None:
             budget = auto_chunk_budget(device)
@@ -206,9 +237,8 @@ def _batch_bounds(wv: np.ndarray, n: int, wedge_aware: bool, rows: int,
     )
 
 
-def _count_batch(dg, rg: RankedGraph, wv_slots: np.ndarray, *,
-                 wedge_aware: bool, rows: int, target: int, mode: str,
-                 direction: str, dtype: torch.dtype):
+def _count_batch(sw: _SlotWedges, rg: RankedGraph, *, wedge_aware: bool,
+                 rows: int, target: int, mode: str, dtype: torch.dtype):
     """Batch aggregation (the paper's simple and wedge-aware batching).
 
     Each block owns the wedges of a contiguous range of iterating
@@ -221,6 +251,7 @@ def _count_batch(dg, rg: RankedGraph, wv_slots: np.ndarray, *,
     group's representative, which adds the group's C(d, 2) (the
     reference's replacement for the serial "first time I see this
     endpoint" test). No block reads the device back."""
+    dg, direction, cnt, wv_slots = sw
     n_real = 2 * rg.m
     wv = np.zeros(rg.n_pad, dtype=np.int64)
     np.add.at(wv, rg.edge_src[:n_real].astype(np.int64), wv_slots[:n_real])
@@ -230,7 +261,6 @@ def _count_batch(dg, rg: RankedGraph, wv_slots: np.ndarray, *,
     n_pad, m, dev = dg.n_pad, dg.m, dg.device
     off, nbr = dg.offsets.long(), dg.neighbors.long()
     src, uid = dg.edge_src.long(), dg.undirected_id.long()
-    cnt = slot_wedge_counts(dg, direction)
     w_off = wedge_offsets(cnt)
     table = torch.zeros(rows * n_pad, dtype=torch.int32, device=dev)
     rep_t = torch.full((rows * n_pad,), _pipeline.I32_MAX, dtype=torch.int32,
@@ -296,7 +326,7 @@ def count_from_ranked(
     cache_opt: bool = False,
     count_dtype=None,
     batch_rows: int = 8,
-    batch_target: int = 1 << 14,
+    batch_target: int = BATCH_TARGET,
     engine: str = "torch",
     max_chunk=None,
     hash_bits: Optional[int] = None,
@@ -312,6 +342,19 @@ def count_from_ranked(
     size. ``batch_rows``/``batch_target`` size the blocks of
     ``aggregation="batch"|"batch_wa"``, which run on ``engine="torch"``
     only (ValueError otherwise). ``device=None`` means CUDA."""
+    return _count_from_ranked(
+        rg, None, aggregation=aggregation, mode=mode, cache_opt=cache_opt,
+        count_dtype=count_dtype, batch_rows=batch_rows,
+        batch_target=batch_target, engine=engine, max_chunk=max_chunk,
+        hash_bits=hash_bits, device=device,
+    )
+
+
+def _count_from_ranked(rg, sw: Optional[_SlotWedges], *, aggregation, mode,
+                       cache_opt, count_dtype, batch_rows, batch_target,
+                       engine, max_chunk, hash_bits, device):
+    """:func:`count_from_ranked` on ``sw``, the count's device graph and
+    wedge counts (None: this call makes its own pass)."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be {'|'.join(ENGINES)}, got {engine}")
     if mode not in MODES:
@@ -327,7 +370,7 @@ def count_from_ranked(
     hash_bits = _faults.hash_bits_override(f"count.{engine}", hash_bits)
     want = torch.int32 if count_dtype is None else count_dtype
     out = _count_ranked(
-        rg, aggregation=aggregation, mode=mode, cache_opt=cache_opt,
+        rg, sw, aggregation=aggregation, mode=mode, cache_opt=cache_opt,
         dtype=torch.int64 if want == torch.int32 else want,
         batch_rows=batch_rows, batch_target=batch_target, engine=engine,
         max_chunk=max_chunk, hash_bits=hash_bits, device=device,
@@ -356,7 +399,7 @@ def narrow_counts(out, dtype: torch.dtype):
     return narrowed if isinstance(out, tuple) else narrowed[0]
 
 
-def _count_ranked(rg, *, aggregation, mode, cache_opt, dtype, batch_rows,
+def _count_ranked(rg, sw, *, aggregation, mode, cache_opt, dtype, batch_rows,
                   batch_target, engine, max_chunk, hash_bits, device):
     """:func:`count_from_ranked` after its checks, in ``dtype``."""
     direction = "high" if cache_opt else "low"
@@ -364,9 +407,8 @@ def _count_ranked(rg, *, aggregation, mode, cache_opt, dtype, batch_rows,
         # per-tile strategy choice needs a tile plan; the materializing
         # rungs resolve to sort (both strategies are exact)
         aggregation = "sort"
-    dg = device_graph(rg, device)
-    with _spans.span("count.wedge_counts"):
-        wv_slots = host_wedge_counts(rg, direction)
+    if sw is None:
+        sw = _slot_wedges(rg, direction, device)
     if aggregation in BATCH_AGGREGATIONS:
         if engine != "torch":
             raise ValueError(
@@ -375,9 +417,9 @@ def _count_ranked(rg, *, aggregation, mode, cache_opt, dtype, batch_rows,
                 "engine='torch'"
             )
         return _count_batch(
-            dg, rg, wv_slots, wedge_aware=aggregation == "batch_wa",
+            sw, rg, wedge_aware=aggregation == "batch_wa",
             rows=int(batch_rows), target=int(batch_target), mode=mode,
-            direction=direction, dtype=dtype,
+            dtype=dtype,
         )
     with _spans.span("count.plan"):
         plan = _plan_from_knobs(
@@ -390,15 +432,17 @@ def _count_ranked(rg, *, aggregation, mode, cache_opt, dtype, batch_rows,
             max_chunk=max_chunk,
             hash_bits=hash_bits,
             device=device,
-            wv_slots=wv_slots,
+            wv_slots=sw.host,
         )
     if plan is not None:
-        return _pipeline.execute_count_plan(dg, plan, rg.offsets, wv_slots)
+        return _pipeline.execute_count_plan(
+            sw.dg, plan, sw.cnt, rg.offsets, sw.host
+        )
     # materializing torch/cuda path: the whole wedge array in one batch
-    w_total = int(wv_slots.sum())
+    dg = sw.dg
+    w_total = int(sw.host.sum())
     w_cap = max(128, ((w_total + 127) // 128) * 128)
-    cnt = slot_wedge_counts(dg, direction)
-    w = gather_wedges(dg, cnt, w_cap, direction)
+    w = gather_wedges(dg, sw.cnt, w_cap, direction)
     bits = table_bits_for(w_cap) if hash_bits is None else hash_bits
     out, _ok = _pipeline.aggregate_and_accumulate(
         dg, w, aggregation, mode, dtype, engine, bits
@@ -543,6 +587,9 @@ def count_butterflies(
     ladder = COUNT_LADDERS.get(engine, (engine,))
     if aggregation in BATCH_AGGREGATIONS:
         ladder = (engine,)  # batch fuses its own accumulation: one rung
+    # the one upload and wedge-count pass: the report-only pass and every
+    # rung attempt plan and run from it
+    sw = _slot_wedges(rg, "high" if cache_opt else "low", device)
 
     def _make_rung(eng):
         def run(shrinks):
@@ -552,15 +599,18 @@ def count_butterflies(
                 if base is None:
                     base = auto_chunk_budget(device)
                 mc = shrink_budget(base, shrinks)
-            out = count_from_ranked(
+            out = _count_from_ranked(
                 rg,
+                sw,
                 aggregation=aggregation,
                 mode=mode,
                 cache_opt=cache_opt,
                 count_dtype=count_dtype,
                 batch_rows=batch_rows,
+                batch_target=BATCH_TARGET,
                 engine=eng,
                 max_chunk=mc,
+                hash_bits=None,
                 device=device,
             )
             return _to_host(out)
@@ -575,12 +625,13 @@ def count_butterflies(
                 rg,
                 aggregation=aggregation,
                 mode=mode,
-                direction="high" if cache_opt else "low",
+                direction=sw.direction,
                 dtype=torch.int32 if count_dtype is None else count_dtype,
                 engine=engine,
                 max_chunk=max_chunk,
                 hash_bits=None,
                 device=device,
+                wv_slots=sw.host,
             )
         except _res.ResilienceError:
             plan = None

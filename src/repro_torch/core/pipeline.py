@@ -57,7 +57,6 @@ from .wedges import (
     aligned_tile_end,
     host_wedge_counts,
     plan_wedge_chunks,
-    slot_wedge_counts,
     wedge_offsets,
     wedges_at,
 )
@@ -662,6 +661,7 @@ def count_tile_step(
 def run_count_tiles(
     dg: DeviceGraph,
     plan: WedgePlan,
+    cnt: torch.Tensor,
     *,
     engine: str = "torch",
 ):
@@ -669,10 +669,11 @@ def run_count_tiles(
     re-materialized via ``wedges_at``, aggregated with its planned
     strategy, accumulated, and discarded. Peak wedge memory is
     O(chunk_cap) instead of O(W); per-tile counts add exactly because
-    groups never span an iterating-vertex boundary."""
+    groups never span an iterating-vertex boundary. ``cnt`` is the
+    plan's per-slot wedge counts on ``dg``'s device
+    (``wedges.slot_wedge_counts``)."""
     acc = plan.accumulator
     dtype = acc.torch_dtype()
-    cnt = slot_wedge_counts(dg, plan.direction)
     w_off = wedge_offsets(cnt)
     starts = w_off[dg.offsets.long()].cpu().numpy()
     out = zero_counts(dg, acc.mode, dtype)
@@ -773,15 +774,19 @@ def run_fused_cuda_tiles(
 def execute_count_plan(
     dg: DeviceGraph,
     plan: WedgePlan,
+    cnt: torch.Tensor,
     rg_offsets: Optional[np.ndarray] = None,
     wv_slots: Optional[np.ndarray] = None,
 ):
     """Execute a counting plan on its device graph and return the
     rank-space counts (a scalar / array / triple per the accumulator
-    mode). ``engine="fused_cuda"`` dispatches the fused kernel
-    (``rg_offsets``/``wv_slots`` are its host-side planning inputs);
-    everything else streams through :func:`run_count_tiles`, with the
-    kernels of the ``cuda`` engine inside each tile."""
+    mode). ``cnt`` is the plan's per-slot wedge counts on ``dg``'s
+    device (``wedges.slot_wedge_counts``). ``engine="fused_cuda"``
+    dispatches the fused kernel (``rg_offsets`` and ``wv_slots``, the
+    host copy of ``cnt``, are its host-side planning inputs; the
+    kernel's wedge prefix is uploaded from the host's); everything else
+    streams through :func:`run_count_tiles`, with the kernels of the
+    ``cuda`` engine inside each tile."""
     if plan.kind != "count":
         raise ValueError(f"not a counting plan: kind={plan.kind!r}")
     if plan.engine == "fused_cuda":
@@ -792,7 +797,7 @@ def execute_count_plan(
             )
         return run_fused_cuda_tiles(dg, plan, rg_offsets, wv_slots)
     engine = "cuda" if plan.engine == "cuda" else "torch"
-    return run_count_tiles(dg, plan, engine=engine)
+    return run_count_tiles(dg, plan, cnt, engine=engine)
 
 
 # ---------------------------------------------------------------------------

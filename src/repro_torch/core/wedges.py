@@ -193,6 +193,12 @@ def host_wedge_counts(rg: RankedGraph, direction: str = "low") -> np.ndarray:
     Vectorized via composite keys: CSR entries are globally lexsorted by
     (src, dst), so a per-slice searchsorted is a global searchsorted on
     ``src * n_pad1 + dst``.
+
+    The mesh planner (``core/distributed.py``) plans from it, and
+    ``plan_wedge_chunks`` and ``pipeline.plan_count`` fall back to it
+    when no array is given; the tests hold the device version against
+    it. A count (``core/count.py``) plans from the host copy of its one
+    ``slot_wedge_counts`` pass instead, element for element the same.
     """
     src = rg.edge_src.astype(np.int64)
     dst = rg.neighbors.astype(np.int64)

@@ -1,0 +1,188 @@
+"""The one wedge-count pass of a count: the per-slot wedge counts that
+plan and run a count come from the count's device graph
+(``count._slot_wedges``) and equal the numpy ``host_wedge_counts``
+element for element, padding slots included; ``count_butterflies``
+makes that pass once (``report.phases["count.wedge_counts"].n == 1``)
+and never calls ``host_wedge_counts``, on every engine, mode, forced
+descent, shrink retry and batch aggregation, with the counts and the
+report's plan summary of the host-planned path."""
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch.core import BipartiteGraph, count_butterflies  # noqa: E402
+from repro_torch.core import count as count_mod  # noqa: E402
+from repro_torch.core import oracle, pipeline, resilience  # noqa: E402
+from repro_torch.core.graph import preprocess  # noqa: E402
+from repro_torch.core.ranking import make_order  # noqa: E402
+from repro_torch.core.wedges import host_wedge_counts  # noqa: E402
+from repro_torch.testing import faults  # noqa: E402
+
+
+def _rand(nu, nv, m, seed):
+    rng = np.random.default_rng(seed)
+    e = np.stack([rng.integers(0, nu, m), rng.integers(0, nv, m)], 1)
+    return BipartiteGraph(nu, nv, e)
+
+
+def _isolated():
+    """Edges among the first few vertices only; the rest isolated."""
+    rng = np.random.default_rng(5)
+    e = np.stack([rng.integers(0, 6, 40), rng.integers(0, 5, 40)], 1)
+    return BipartiteGraph(21, 17, e)
+
+
+def _hub():
+    """One vertex adjacent to every vertex of the other side, and a few
+    other edges."""
+    rng = np.random.default_rng(11)
+    hub = np.stack([np.zeros(40, np.int64), np.arange(40)], 1)
+    rest = np.stack([rng.integers(1, 12, 30), rng.integers(0, 40, 30)], 1)
+    return BipartiteGraph(12, 40, np.concatenate([hub, rest]))
+
+
+GRAPHS = {
+    "rand0": lambda: _rand(30, 25, 160, 0),
+    "rand1": lambda: _rand(40, 12, 200, 1),
+    "rand2": lambda: _rand(9, 33, 120, 2),
+    "isolated": _isolated,
+    "hub": _hub,
+    "one_edge": lambda: BipartiteGraph(1, 1, np.array([[0, 0]])),
+}
+
+
+def _ranked(g, order, pad_vertices=8):
+    return preprocess(g, make_order(g, order, device="cpu"),
+                      order_name=order, pad_vertices=pad_vertices)
+
+
+def _check_pass(rg, direction, device):
+    sw = count_mod._slot_wedges(rg, direction, device)
+    want = host_wedge_counts(rg, direction)
+    assert sw.direction == direction
+    assert sw.host.dtype == np.int64 and sw.cnt.dtype == torch.int64
+    assert sw.cnt.device.type == torch.device(device).type
+    assert np.array_equal(sw.host, want)
+    assert np.array_equal(sw.cnt.cpu().numpy(), want)
+    assert not sw.host[2 * rg.m:].any()  # padding slots hold 0
+    return sw
+
+
+@pytest.mark.parametrize("direction", ["low", "high"])
+@pytest.mark.parametrize("order", ["degree", "side"])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_pass_equals_host_wedge_counts(name, order, direction):
+    # a long vertex padding tail: 32-vertex padding
+    rg = _ranked(GRAPHS[name](), order, pad_vertices=32)
+    assert rg.n_pad > rg.n and rg.e_pad >= 2 * rg.m
+    _check_pass(rg, direction, "cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("direction", ["low", "high"])
+def test_pass_equals_host_wedge_counts_on_card(direction):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for name in sorted(GRAPHS):
+        rg = _ranked(GRAPHS[name](), "degree", pad_vertices=32)
+        _check_pass(rg, direction, "cuda")
+    g = _rand(3000, 2500, 60_000, 7)
+    _check_pass(_ranked(g, "degree"), direction, "cuda")
+
+
+def _no_host_pass(monkeypatch):
+    """Every module of the port that holds ``host_wedge_counts`` gets one
+    that raises."""
+    def boom(*_a, **_k):
+        raise AssertionError("host_wedge_counts called on the count path")
+
+    for name, mod in list(sys.modules.items()):
+        if name.startswith("repro_torch") and hasattr(mod,
+                                                      "host_wedge_counts"):
+            monkeypatch.setattr(mod, "host_wedge_counts", boom)
+
+
+def _oracle(g):
+    per_u, per_v = oracle.per_vertex_counts(g)
+    return (oracle.global_count(g), per_u, per_v, oracle.per_edge_counts(g))
+
+
+def _assert_counts(r, g, mode):
+    total, per_u, per_v, per_edge = _oracle(g)
+    assert int(r.total) == total
+    if mode == "all":
+        assert np.array_equal(r.per_u, per_u)
+        assert np.array_equal(r.per_v, per_v)
+        assert np.array_equal(r.per_edge, per_edge)
+
+
+MAX_CHUNK = 64  # several tiles on every engine, so every engine plans
+
+# (engine, mode, aggregation, fault, the rungs the ladder runs)
+CASES = {
+    **{f"{e}-{m}": (e, m, "sort", None, [e])
+       for e in ("fused_cuda", "fused", "cuda", "torch")
+       for m in ("global", "all")},
+    "descent-global": ("fused_cuda", "global", "sort",
+                       ("capacity_overflow", None), ["fused_cuda", "fused"]),
+    "descent-all": ("fused_cuda", "all", "hash",
+                    ("capacity_overflow", None), ["fused_cuda", "fused"]),
+    "shrink-global": ("fused_cuda", "global", "sort", ("oom", 1),
+                      ["fused_cuda"]),
+    "shrink-all": ("fused", "all", "auto", ("oom", 1), ["fused"]),
+    "batch_wa-global": ("torch", "global", "batch_wa", None, ["torch"]),
+    "batch_wa-all": ("torch", "all", "batch_wa", None, ["torch"]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_count_makes_one_pass_and_no_host_pass(case, monkeypatch):
+    engine, mode, aggregation, fault, rungs = CASES[case]
+    g = _rand(30, 25, 160, 3)
+    # the host-planned report pass: the plan that the report records
+    rg = _ranked(g, "degree")
+    want_plan = None
+    if aggregation != "batch_wa":
+        want_plan = pipeline.plan_count(
+            rg, mode=mode, direction="low", aggregation=aggregation,
+            budget=MAX_CHUNK, dtype=torch.int64, engine=engine,
+        ).summary()
+    _no_host_pass(monkeypatch)
+    kw = dict(mode=mode, engine=engine, aggregation=aggregation,
+              max_chunk=MAX_CHUNK, count_dtype=torch.int64, device="cpu",
+              resilience=resilience.ResiliencePolicy(backoff_base_s=0.0))
+    if fault is None:
+        r = count_butterflies(g, **kw)
+    else:
+        kind, times = fault
+        with faults.inject(kind, site=f"count.{engine}", times=times) as f:
+            r = count_butterflies(g, **kw)
+        assert f.fired >= 1
+    rep = r.report
+    assert rep.phases["count.wedge_counts"].n == 1
+    assert [a.rung for a in rep.attempts] == rungs
+    if fault is not None and fault[0] == "oom":
+        assert rep.attempts[0].retries == 1
+    assert rep.plan == want_plan
+    assert r.total.dtype == np.int64
+    _assert_counts(r, g, mode)
+
+
+@pytest.mark.parametrize("engine", ["fused_cuda", "torch"])
+def test_count_from_ranked_alone_makes_its_own_pass(engine, monkeypatch):
+    """Called alone, as the query service calls it, ``count_from_ranked``
+    plans from its own device pass, not from ``host_wedge_counts``."""
+    g = _rand(30, 25, 160, 4)
+    rg = _ranked(g, "degree")
+    _no_host_pass(monkeypatch)
+    total, bv, be = count_mod.count_from_ranked(
+        rg, mode="all", engine=engine, max_chunk=MAX_CHUNK,
+        count_dtype=torch.int64, device="cpu")
+    r = count_mod.interpret_counts(
+        rg, g, "all", (total.numpy(), bv.numpy(), be.numpy()), "sort",
+        "degree")
+    _assert_counts(r, g, "all")
