@@ -87,7 +87,10 @@ root ``peel``, ``peel.rung`` per ladder attempt and ``peel.validate``;
 the device round loop's ``peel.round.select``, ``peel.round.fetch`` and
 ``peel.round.expand`` with the ``rounds`` counter, and ``peel.finish``;
 ``peel_tips`` adds ``peel.count``, ``peel.csr``, ``peel.level2`` and
-``peel.plan``, and its device rung ``peel.setup``.
+``peel.plan``, and its device rung ``peel.setup``; ``peel_wings`` adds
+``peel.count``, ``peel.csr`` and ``peel.wing_totals``, and its device
+rung ``peel.setup`` with the counters ``triple_lanes`` (flat triple ids
+streamed) and ``tiles`` (tile enqueues).
 
 Double-count avoidance (paper §4.3.1/§4.3.2): peel-set members are
 processed against a virtual rank order (their id); an element of the
@@ -1127,38 +1130,42 @@ def _peel_wings_device_run(g, counts, aggregation, max_frontier, hash_bits,
         return None
     materialize = subtract == "materialize"
     adaptive = capacity_schedule == "adaptive"
-    nbr_ds, uid_ds, degs_ds, cumdeg = degree_sorted_csr(off, nbr, uid)
-    if (not materialize and cumdeg.size
-            and int((cumdeg + degs_ds).max(initial=0)) >= _I32_MAX):
-        note.append("device engine unavailable: degree-sorted prefixes "
-                    "beyond int32 indexing")
-        return None
-    budget, tb = _budgets(max_frontier, tile_budget, budget_shrinks)
-    caps = {"cap1": _pow2_pad(min(lvl1, budget)),
-            "cap2": _pow2_pad(min(lvl2, budget))}
-    tile_cap = _pow2_pad(min(tb, max(lvl2, 1)))
-    want_hist = peel_mode == "range" and decrease_key == "bucket"
-    deg = np.diff(off)
-    src = np.repeat(np.arange(n), deg)
-    stride = int(deg.max(initial=0)) + 1
+    with _spans.span("peel.setup"):
+        nbr_ds, uid_ds, degs_ds, cumdeg = degree_sorted_csr(off, nbr, uid)
+        if (not materialize and cumdeg.size
+                and int((cumdeg + degs_ds).max(initial=0)) >= _I32_MAX):
+            note.append("device engine unavailable: degree-sorted prefixes "
+                        "beyond int32 indexing")
+            return None
+        budget, tb = _budgets(max_frontier, tile_budget, budget_shrinks)
+        caps = {"cap1": _pow2_pad(min(lvl1, budget)),
+                "cap2": _pow2_pad(min(lvl2, budget))}
+        tile_cap = _pow2_pad(min(tb, max(lvl2, 1)))
+        want_hist = peel_mode == "range" and decrease_key == "bucket"
+        deg = np.diff(off)
+        src = np.repeat(np.arange(n), deg)
+        stride = int(deg.max(initial=0)) + 1
 
-    def dev(a):
-        return torch.as_tensor(np.ascontiguousarray(a, np.int64),
-                               device=device)
+        def dev(a):
+            return torch.as_tensor(np.ascontiguousarray(a, np.int64),
+                                   device=device)
 
-    off_d, nbr_d, uid_d, deg_d = dev(off), dev(nbr), dev(uid), dev(deg)
-    eu_d, ev_d = dev(eu), dev(ev)
-    nbr_ds_d, uid_ds_d = dev(nbr_ds), dev(uid_ds)
-    # globally sorted search keys: CSR membership (row, neighbor), the
-    # degree split (row, neighbor degree) and the global exclusive
-    # prefix of neighbor degrees (in-row prefix = G[p] - G[row start])
-    comp_d = dev(src * n + nbr)
-    degkey_d = dev(src * stride + degs_ds)
-    gpre_d = dev(np.concatenate([[0], np.cumsum(degs_ds)]))
-    slot_max = 2 * m - 1
+        off_d, nbr_d, uid_d, deg_d = dev(off), dev(nbr), dev(uid), dev(deg)
+        eu_d, ev_d = dev(eu), dev(ev)
+        nbr_ds_d, uid_ds_d = dev(nbr_ds), dev(uid_ds)
+        # globally sorted search keys: CSR membership (row, neighbor), the
+        # degree split (row, neighbor degree) and the global exclusive
+        # prefix of neighbor degrees (in-row prefix = G[p] - G[row start])
+        comp_d = dev(src * n + nbr)
+        degkey_d = dev(src * stride + degs_ds)
+        gpre_d = dev(np.concatenate([[0], np.cumsum(degs_ds)]))
+        slot_max = 2 * m - 1
 
-    # per-edge level-1 candidates and triple-space sizes
-    work = torch.stack([dev(l1), dev(l2)])
+        # per-edge level-1 candidates and triple-space sizes
+        work = torch.stack([dev(l1), dev(l2)])
+        b0 = torch.tensor(counts, device=device)
+        state = _init_state(b0, m, decrease_key=decrease_key,
+                            peel_mode=peel_mode, lvl1=lvl1, lvl2=lvl2)
 
     def expand(st, peel, alive_prev, n_peel, tot):
         total1, total = tot
@@ -1177,6 +1184,8 @@ def _peel_wings_device_run(g, counts, aggregation, max_frontier, hash_bits,
             bounds = [(0, total)] if total else []
         else:
             bounds = _tile_bounds(total, tile_cap)
+        _spans.add("triple_lanes", total)
+        _spans.add("tiles", len(bounds))
         roff = _prefix(work[1][ids])
 
         def tile_fn(bt, ts, te):
@@ -1259,9 +1268,6 @@ def _peel_wings_device_run(g, counts, aggregation, max_frontier, hash_bits,
             caps["cap1"] = min(caps["cap1"], _pow2_pad(st.rem[0]))
             caps["cap2"] = min(caps["cap2"], _pow2_pad(st.rem[1]))
 
-    b0 = torch.tensor(counts, device=device)
-    state = _init_state(b0, m, decrease_key=decrease_key,
-                        peel_mode=peel_mode, lvl1=lvl1, lvl2=lvl2)
     st = _drive_segments(
         lambda s: _device_round_loop(s, expand, work,
                                      decrease_key=decrease_key,
@@ -1437,15 +1443,19 @@ def peel_wings(
     device = resolve_device(device)
     policy = _res.resolve_policy(resilience)
     hash_bits = _faults.hash_bits_override("peel_wings", hash_bits)
-    if counts is None:
-        r = count_butterflies(
-            g, mode="edge", count_dtype=default_count_dtype(),
-            device=device, **(count_kwargs or {})
-        )
-        counts = r.per_edge
-    counts = np.asarray(counts).copy()
-    off, nbr, uid = _csr(g)
-    w_totals = _wing_work_totals(g, off, nbr)
+    with _spans.span("peel.count"):
+        if counts is None:
+            r = count_butterflies(
+                g, mode="edge", count_dtype=default_count_dtype(),
+                device=device, **(count_kwargs or {})
+            )
+            counts = r.per_edge
+        counts = np.asarray(counts).copy()
+    with _spans.span("peel.csr"):
+        off, nbr, uid = _csr(g)
+    # shared by the device planner and the plan's entity work
+    with _spans.span("peel.wing_totals"):
+        w_totals = _wing_work_totals(g, off, nbr)
     audit: list = []
 
     def run_device(shrinks: int):

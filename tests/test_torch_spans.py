@@ -1,7 +1,9 @@
 """Spans and counters of the port's entry points (``repro_torch.core.spans``)
 on the CPU: the nesting, parents and self time of spans; the documented
-span names of a count and of a device-engine tip decomposition; the root
-covered by its children; the ``rounds`` counter against the result; the
+span names of a count and of device-engine tip and wing decompositions;
+the root covered by its children; the ``rounds``, ``triple_lanes`` and
+``tiles`` counters against the result; a wing decomposition's numbers
+alike with spans recording, under a profiler and not at all; the
 timeline, empty without a profiler and on the profiler's own clock with
 one; and separate reports for threads that call at once. The card test
 holds a traced count's kernel inside its spans."""
@@ -17,7 +19,8 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from repro_torch.core import count_butterflies, peel_tips  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    count_butterflies, peel_tips, peel_wings)
 from repro_torch.core import spans  # noqa: E402
 from repro_torch.core.resilience import ExecutionReport  # noqa: E402
 from repro_torch.data.graphs import powerlaw_bipartite  # noqa: E402
@@ -34,6 +37,11 @@ COUNT_SPANS = {
 PEEL_SPANS = {
     "peel", "peel.count", "peel.csr", "peel.level2", "peel.plan",
     "peel.rung", "peel.setup", "peel.round.select", "peel.round.fetch",
+    "peel.round.expand", "peel.finish", "peel.validate",
+}
+WING_SPANS = {
+    "peel", "peel.count", "peel.csr", "peel.wing_totals", "peel.rung",
+    "peel.setup", "peel.round.select", "peel.round.fetch",
     "peel.round.expand", "peel.finish", "peel.validate",
 }
 COUNT_KW = dict(mode="all", engine="fused_cuda", count_dtype=torch.int64,
@@ -53,6 +61,11 @@ def _peel(g, **kw):
     return peel_tips(g, engine="device",
                      count_kwargs={"engine": "fused_cuda"}, device="cpu",
                      **kw)
+
+
+def _wings(g, fn=peel_wings, **kw):
+    return fn(g, engine="device", count_kwargs={"engine": "fused_cuda"},
+              device="cpu", **kw)
 
 
 def _traced(fn):
@@ -148,6 +161,60 @@ def test_tip_phases_and_rounds(graph, peel_mode):
     assert ph["peel.round.fetch"].n + ph["peel.finish"].n == rep.host_syncs
     assert ph["peel.round.select"].n == r.sub_rounds
     assert rep.timeline == []
+
+
+@pytest.fixture(scope="module")
+def wing_graph():
+    return powerlaw_bipartite(200, 150, 1200, seed=7)
+
+
+def test_wing_phases_and_counters(wing_graph):
+    r = _wings(wing_graph)
+    rep = r.report
+    assert rep.final_rung == "device"
+    assert set(rep.phases) == WING_SPANS
+    assert set(rep.counters) == {"rounds", "triple_lanes", "tiles"}
+    assert rep.counters["rounds"] == r.rounds > 0
+    ph = rep.phases
+    for name in ("peel.count", "peel.csr", "peel.wing_totals",
+                 "peel.setup"):
+        assert ph[name].n == 1, name
+    assert ph["peel.round.fetch"].n + ph["peel.finish"].n == rep.host_syncs
+    # the last round expands nothing: at most one tile a round before it
+    assert 0 < rep.counters["tiles"] <= r.rounds - 1
+    assert rep.counters["triple_lanes"] > 0
+
+
+def test_wing_counters_follow_the_tiles(wing_graph):
+    """The triple space streamed does not depend on the tiling; small
+    tiles multiply the tile enqueues by about the lanes over the tile."""
+    from repro_torch.core.peel import _csr, _wing_work_totals
+
+    big = _wings(wing_graph).report.counters
+    # 256 lanes a tile: a power of two above the 128-lane floor
+    small = _wings(wing_graph, tile_budget=256).report.counters
+    lanes = big["triple_lanes"]
+    assert small["triple_lanes"] == lanes
+    _eu, _ev, _l1, l2 = _wing_work_totals(wing_graph,
+                                          *_csr(wing_graph)[:2])
+    assert lanes <= int(l2.sum())
+    assert lanes / 256 <= small["tiles"] <= lanes / 256 + big["rounds"]
+
+
+def test_wing_numbers_alike_with_spans_on_and_off(wing_graph):
+    """Spans recording under a profiler, recording with none, and not
+    recording at all (the undecorated function opens no call) give the
+    same numbers, which are the host engine's."""
+    plain = _wings(wing_graph)
+    traced, _prof = _traced(lambda: _wings(wing_graph))
+    bare = _wings(wing_graph, fn=peel_wings.__wrapped__)
+    assert bare.report.phases == {} and bare.report.counters == {}
+    host = peel_wings(wing_graph, device="cpu")
+    for r in (traced, bare, host):
+        assert np.array_equal(r.numbers, plain.numbers)
+        assert r.rounds == plain.rounds
+    assert {name for name, *_ in traced.report.timeline} == WING_SPANS
+    assert plain.report.timeline == []
 
 
 @pytest.mark.parametrize("which", ["count", "peel"])
