@@ -14,14 +14,18 @@ pipeline (``core/pipeline.py``): it validates knobs, builds a
 hands it to the shared executors, and interprets the rank-space results
 back into a :class:`CountResult`.
 
-The per-slot wedge counts that plan a count are computed once per call,
-on the device that holds the count's ``DeviceGraph``
-(``wedges.slot_wedge_counts``, span ``count.wedge_counts``), and copied
-to the host once: :func:`count_butterflies` uploads the graph
-once and hands that graph and both copies of the array to its report-only
-planning pass and to every rung attempt (shrink retries, lower rungs, the
-batch aggregations); :func:`count_from_ranked` called alone, as the query
-service calls it, makes its own single pass the same way. The numpy
+:func:`count_butterflies` builds the count's CSR on its own device
+(``wedges.preprocess_device``, span ``count.csr``): the host
+``RankedGraph`` that the planners and ``interpret_counts`` read comes
+from one copy of the build's buffer, and the ``DeviceGraph`` is that
+buffer, never uploaded. The per-slot wedge counts that plan a count are
+computed once per call on that graph (``wedges.slot_wedge_counts``, span
+``count.wedge_counts``) and copied to the host once; the graph and both
+copies of the array serve the report-only planning pass and every rung
+attempt (shrink retries, lower rungs, the batch aggregations).
+:func:`count_from_ranked` called alone, as the query service calls it,
+uploads its ``RankedGraph`` and makes its own single pass the same way
+(counter ``csr_reused`` 0, against 1 in a count). The numpy
 ``wedges.host_wedge_counts`` gives the same array; it stays the mesh
 planner's (``core/distributed.py``), the planners' default when no array
 is given, and the tests' oracle.
@@ -71,7 +75,7 @@ from . import resilience as _res
 from . import spans as _spans
 from .aggregate import table_bits_for
 from .device import resolve_device
-from .graph import BipartiteGraph, RankedGraph, preprocess
+from .graph import BipartiteGraph, RankedGraph
 from .ranking import make_order
 from .wedges import (
     DeviceGraph,
@@ -79,6 +83,7 @@ from .wedges import (
     device_graph,
     gather_wedges,
     greedy_vertex_blocks,
+    preprocess_device,
     shrink_budget,
     slot_wedge_counts,
     wedge_offsets,
@@ -165,12 +170,17 @@ class _SlotWedges(NamedTuple):
     host: np.ndarray  # int64 (e_pad,)
 
 
-def _slot_wedges(rg: RankedGraph, direction: str, device) -> _SlotWedges:
-    """Upload ``rg`` and compute its per-slot wedge counts from the
-    uploaded graph, on its device, with one copy to the host: the one
-    wedge-count pass of a count (span ``count.wedge_counts``)."""
+def _slot_wedges(rg: RankedGraph, direction: str, device,
+                 dg: Optional[DeviceGraph] = None) -> _SlotWedges:
+    """Compute the per-slot wedge counts of ``dg``, the device graph of
+    ``rg`` (None: upload ``rg`` to ``device``), on its device, with one
+    copy to the host: the one wedge-count pass of a count (span
+    ``count.wedge_counts``; counter ``csr_reused``, 1 when ``dg`` was
+    given)."""
     with _spans.span("count.wedge_counts"):
-        dg = device_graph(rg, device)
+        _spans.add("csr_reused", dg is not None)
+        if dg is None:
+            dg = device_graph(rg, device)
         cnt = slot_wedge_counts(dg, direction)
         return _SlotWedges(dg, direction, cnt, cnt.cpu().numpy())
 
@@ -580,16 +590,16 @@ def count_butterflies(
     with _spans.span("count.rank"):
         ordering = make_order(g, order, device=device)
     with _spans.span("count.csr"):
-        rg = preprocess(g, ordering, order_name=order)
+        rg, dg = preprocess_device(g, ordering, order, device)
     if policy.validate_results:
         with _spans.span("count.preflight"):
             g.accumulator_preflight()
     ladder = COUNT_LADDERS.get(engine, (engine,))
     if aggregation in BATCH_AGGREGATIONS:
         ladder = (engine,)  # batch fuses its own accumulation: one rung
-    # the one upload and wedge-count pass: the report-only pass and every
-    # rung attempt plan and run from it
-    sw = _slot_wedges(rg, "high" if cache_opt else "low", device)
+    # the one wedge-count pass, on the CSR build's device graph: the
+    # report-only pass and every rung attempt plan and run from it
+    sw = _slot_wedges(rg, "high" if cache_opt else "low", device, dg)
 
     def _make_rung(eng):
         def run(shrinks):

@@ -1,9 +1,13 @@
-"""Bipartite graph representations for the ParButterfly engine.
+"""Bipartite graphs for the ParButterfly engine.
 
-Host-side construction is numpy (cheap, O(m log m)) and identical to the
-reference package's, so a graph, its ranking and its padded CSR
-``RankedGraph`` come out the same array for array; counting runs on the
-device over the ``RankedGraph`` (see ``wedges.device_graph``).
+A :class:`BipartiteGraph` and its checks are host numpy, identical to
+the reference package's. PREPROCESS (:func:`build_csr`) is torch, run
+on the device it is given: one stable sort of a composite key orders
+the directed edges, and the padded CSR is written into one int32 buffer
+there. :func:`preprocess` returns that CSR as a host
+:class:`RankedGraph`, the same array for array as the reference's on
+any device; a count builds it on its own device and keeps the device
+buffer as its ``DeviceGraph`` (``wedges.preprocess_device``).
 
 Vertex convention after preprocessing (paper Alg. 1 PREPROCESS):
   - vertices are relabeled so that ``id == rank`` (0 = first in the order,
@@ -17,15 +21,20 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from .resilience import AccumulatorOverflowRisk, GraphValidationError
 
 __all__ = [
     "BipartiteGraph",
     "RankedGraph",
+    "CsrBuffer",
+    "build_csr",
     "preprocess",
+    "ranked_from_csr",
 ]
 
 _DUP_POLICIES = ("dedupe", "raise", "assume_unique")
@@ -312,21 +321,43 @@ class RankedGraph:
                    **arr)
 
 
-def preprocess(
+# Field order of the one int32 buffer a CSR build writes: the build
+# fills it in place on its device and the host reads it with one copy.
+# ``side_of`` rides in it as int32 and is narrowed to int8 on each side.
+_CSR_FIELDS = ("offsets", "neighbors", "edge_src", "undirected_id",
+               "orig_id", "rank_of_u", "rank_of_v", "side_of")
+
+
+class CsrBuffer(NamedTuple):
+    """What :func:`build_csr` writes: the CSR fields of a
+    :class:`RankedGraph`, int32, end to end in one buffer on the build's
+    device, in the order of ``_CSR_FIELDS`` with lengths ``sizes``."""
+
+    buf: torch.Tensor
+    sizes: tuple
+
+    def fields(self) -> dict:
+        """Each field by name, a view into ``buf``."""
+        return dict(zip(_CSR_FIELDS, torch.split(self.buf, self.sizes)))
+
+
+def build_csr(
     g: BipartiteGraph,
-    order: np.ndarray,
-    order_name: str = "custom",
+    order,
     pad_vertices: int = 8,
     pad_edges: int = 128,
-) -> RankedGraph:
-    """Paper Alg. 1 PREPROCESS: relabel vertices by rank, build padded CSR.
+    device="cpu",
+) -> CsrBuffer:
+    """Paper Alg. 1 PREPROCESS in torch on ``device``: the padded CSR of
+    :class:`RankedGraph`, written into one int32 buffer there.
 
-    ``order`` is a permutation of global vertex ids (U ids are
-    ``0..n_u-1``, V ids are ``n_u..n_u+n_v-1``) listing vertices from
-    first-processed (rank 0) to last.
-    """
-    n, m = g.n, g.m
-    order = np.asarray(order, dtype=np.int64)
+    The directed edges, relabeled to ranks, are ordered by one stable
+    sort of the composite key ``src * n_pad + dst`` (below ``n_pad**2 <
+    2**62``), which gives ``np.lexsort((dst, src))``'s permutation, ties
+    among repeated pairs included. ``order`` is checked on the host
+    before any device work."""
+    n, m, n_u = g.n, g.m, g.n_u
+    order = np.ascontiguousarray(order, dtype=np.int64)
     if order.shape != (n,):
         raise GraphValidationError(
             f"order must be a permutation of {n} vertices, "
@@ -343,57 +374,70 @@ def preprocess(
             f"order must be a permutation of {n} vertices: "
             "duplicate entries"
         )
-    rank = np.empty(n, dtype=np.int64)
-    rank[order] = np.arange(n)
-
-    # Global ids: u -> u, v -> n_u + v.
-    gu = g.edges[:, 0]
-    gv = g.edges[:, 1] + g.n_u
-    ru, rv = rank[gu], rank[gv]
-
-    # Directed edges (both directions), relabeled to ranks.
-    src = np.concatenate([ru, rv])
-    dst = np.concatenate([rv, ru])
-    uid = np.concatenate([np.arange(m), np.arange(m)]).astype(np.int64)
-
     n_pad = _round_up(max(n, 1), pad_vertices)
     e_pad = _round_up(max(2 * m, 1), pad_edges)
+    i64 = dict(dtype=torch.int64, device=device)
 
-    # CSR sorted by (src, dst) ascending.
-    perm = np.lexsort((dst, src))
-    src, dst, uid = src[perm], dst[perm], uid[perm]
-    deg = np.bincount(src, minlength=n_pad)
-    offsets = np.zeros(n_pad + 1, dtype=np.int64)
-    np.cumsum(deg, out=offsets[1:])
+    rank = torch.empty(n, **i64)
+    rank[torch.as_tensor(order, device=device)] = torch.arange(n, **i64)
+    # Global ids: u -> u, v -> n_u + v; directed edges both ways.
+    e = torch.as_tensor(g.edges, device=device)
+    ru, rv = rank[e[:, 0]], rank[e[:, 1] + n_u]
+    key, perm = torch.sort(torch.cat([ru * n_pad + rv, rv * n_pad + ru]),
+                           stable=True)
+    src = torch.div(key, n_pad, rounding_mode="floor")
+    dst = key - src * n_pad
+    uid = torch.where(perm >= m, perm - m, perm)  # slots i, m + i: edge i
 
-    neighbors = np.full(e_pad, n_pad, dtype=np.int32)
-    neighbors[: 2 * m] = dst.astype(np.int32)
-    edge_src = np.full(e_pad, n_pad, dtype=np.int32)
-    edge_src[: 2 * m] = src.astype(np.int32)
-    undirected_id = np.full(e_pad, m, dtype=np.int32)
-    undirected_id[: 2 * m] = uid.astype(np.int32)
+    sizes = (n_pad + 1, e_pad, e_pad, e_pad, n_pad, n_u, g.n_v, n_pad)
+    csr = CsrBuffer(torch.empty(sum(sizes), dtype=torch.int32,
+                                device=device), sizes)
+    f = csr.fields()
+    f["offsets"][0] = 0
+    f["offsets"][1:] = torch.cumsum(torch.bincount(src, minlength=n_pad), 0)
+    for name, real, pad in (("neighbors", dst, n_pad),
+                            ("edge_src", src, n_pad),
+                            ("undirected_id", uid, m)):
+        f[name][: 2 * m] = real
+        f[name][2 * m:] = pad
+    for side, ranks in enumerate((rank[:n_u], rank[n_u:])):
+        f["orig_id"][ranks] = torch.arange(ranks.shape[0], dtype=torch.int32,
+                                           device=device)
+        f["side_of"][ranks] = side
+    f["orig_id"][n:] = -1
+    f["side_of"][n:] = -1
+    f["rank_of_u"][:] = rank[:n_u]
+    f["rank_of_v"][:] = rank[n_u:]
+    return csr
 
-    side_of = np.full(n_pad, -1, dtype=np.int8)
-    orig_id = np.full(n_pad, -1, dtype=np.int32)
-    glob = np.concatenate([np.arange(g.n_u), np.arange(g.n_v)])
-    side = np.concatenate(
-        [np.zeros(g.n_u, dtype=np.int8), np.ones(g.n_v, dtype=np.int8)]
-    )
-    side_of[rank[np.arange(n)]] = side
-    orig_id[rank[np.arange(n)]] = glob.astype(np.int32)
 
-    return RankedGraph(
-        n=n,
-        m=m,
-        offsets=offsets.astype(np.int32),
-        neighbors=neighbors,
-        edge_src=edge_src,
-        undirected_id=undirected_id,
-        side_of=side_of,
-        orig_id=orig_id,
-        rank_of_u=rank[: g.n_u].astype(np.int32),
-        rank_of_v=rank[g.n_u :].astype(np.int32),
-        n_u=g.n_u,
-        n_v=g.n_v,
-        order_name=order_name,
-    )
+def ranked_from_csr(g: BipartiteGraph, csr: CsrBuffer,
+                    order_name: str) -> RankedGraph:
+    """The host :class:`RankedGraph` of a :func:`build_csr` buffer, by
+    one copy of the buffer to the host (none from the CPU): every array
+    but ``side_of`` is a view into that copy."""
+    host = csr.buf.cpu().numpy()
+    a = dict(zip(_CSR_FIELDS, np.split(host, np.cumsum(csr.sizes)[:-1])))
+    a["side_of"] = a["side_of"].astype(np.int8)
+    return RankedGraph(n=g.n, m=g.m, n_u=g.n_u, n_v=g.n_v,
+                       order_name=order_name, **a)
+
+
+def preprocess(
+    g: BipartiteGraph,
+    order: np.ndarray,
+    order_name: str = "custom",
+    pad_vertices: int = 8,
+    pad_edges: int = 128,
+    device="cpu",
+) -> RankedGraph:
+    """Paper Alg. 1 PREPROCESS: relabel vertices by rank, build padded CSR.
+
+    ``order`` is a permutation of global vertex ids (U ids are
+    ``0..n_u-1``, V ids are ``n_u..n_u+n_v-1``) listing vertices from
+    first-processed (rank 0) to last. The CSR is built on ``device``
+    (:func:`build_csr`) and returned on the host, array for array the
+    reference's whatever the device.
+    """
+    return ranked_from_csr(
+        g, build_csr(g, order, pad_vertices, pad_edges, device), order_name)

@@ -31,7 +31,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .graph import RankedGraph
+from .graph import BipartiteGraph, RankedGraph, build_csr, ranked_from_csr
 
 __all__ = [
     "DeviceGraph",
@@ -40,6 +40,7 @@ __all__ = [
     "auto_chunk_budget",
     "shrink_budget",
     "device_graph",
+    "preprocess_device",
     "slot_wedge_counts",
     "host_wedge_counts",
     "wedge_offsets",
@@ -134,6 +135,26 @@ def device_graph(rg: RankedGraph, device) -> DeviceGraph:
         n=rg.n,
         m=rg.m,
     )
+
+
+def preprocess_device(g: BipartiteGraph, order, order_name: str,
+                      device) -> tuple[RankedGraph, DeviceGraph]:
+    """PREPROCESS on ``device`` (``graph.build_csr``), kept there: the
+    host :class:`RankedGraph` from one copy of the build's buffer, and
+    the :class:`DeviceGraph` of views into that buffer, equal tensor for
+    tensor to ``device_graph(rg, device)`` without its upload."""
+    csr = build_csr(g, order, device=device)
+    f = csr.fields()
+    dg = DeviceGraph(
+        offsets=f["offsets"],
+        neighbors=f["neighbors"],
+        edge_src=f["edge_src"],
+        undirected_id=f["undirected_id"],
+        side_of=f["side_of"].to(torch.int8),
+        n=g.n,
+        m=g.m,
+    )
+    return ranked_from_csr(g, csr, order_name), dg
 
 
 class Wedges(NamedTuple):

@@ -1,10 +1,14 @@
 """The port's graph layer against the reference package: seeded
 generators give the same graphs, every ranking gives the same order,
-preprocessing gives the same padded CSR arrays and the same content
-hash, and malformed input raises the same typed errors."""
+preprocessing gives the same padded CSR arrays (on seeded generators,
+the benchmark's Graph 500 graphs, repeated edges kept under
+``assume_unique``, one edge, isolated vertices) and the same content
+hash, and malformed input, a bad order included, raises the same typed
+errors."""
 import dataclasses
 import json
 import os
+import sys
 
 import pytest
 
@@ -24,6 +28,10 @@ from repro_torch.core.resilience import (  # noqa: E402
 from repro_torch.data import graphs  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+if os.path.dirname(HERE) not in sys.path:
+    sys.path.insert(0, os.path.dirname(HERE))  # the benchmark's generator
+from perfbench.generator import cell_graph  # noqa: E402
+
 GENERATORS = [
     ("random_bipartite", (50, 40, 400), {"seed": 3}),
     ("powerlaw_bipartite", (300, 200, 2000), {"seed": 5}),
@@ -46,10 +54,52 @@ def test_generators_match_reference(name, args, kw):
     assert p.accumulator_preflight() == r.accumulator_preflight()
 
 
+def _graph500(scale, seed):
+    """The benchmark's Graph 500 graph (``perfbench/generator.py``) at a
+    small SCALE."""
+    n_u, n_v, e = cell_graph({"SCALE": scale, "edgefactor": 16, "initiator":
+                              {"A": 0.57, "B": 0.19, "C": 0.19}}, seed)
+    return ref_graph.BipartiteGraph(n_u, n_v, e), graph.BipartiteGraph(
+        n_u, n_v, e)
+
+
+def _both(n_u, n_v, edges, **kw):
+    e = np.asarray(edges, dtype=np.int64)
+    return (ref_graph.BipartiteGraph(n_u, n_v, e, **kw),
+            graph.BipartiteGraph(n_u, n_v, e, **kw))
+
+
+def _repeated():
+    """Repeated pairs, kept by ``assume_unique``: a stable sort keeps
+    their ``undirected_id`` in the reference's order."""
+    rng = np.random.default_rng(9)
+    e = np.stack([rng.integers(0, 6, 60), rng.integers(0, 5, 60)], 1)
+    return _both(6, 5, np.concatenate([e, e[::3]]),
+                 on_duplicate="assume_unique")
+
+
+def _isolated():
+    """Edges among the first few vertices only; the rest isolated."""
+    rng = np.random.default_rng(5)
+    e = np.stack([rng.integers(0, 6, 40), rng.integers(0, 5, 40)], 1)
+    return _both(21, 17, e)
+
+
+# graph cases beyond GENERATORS (whose cases keep their indices)
+GRAPHS = {
+    "graph500-s7": lambda: _graph500(7, 1),
+    "graph500-s8": lambda: _graph500(8, 2),
+    "graph500-s9": lambda: _graph500(9, 3),
+    "repeated-assume-unique": _repeated,
+    "one-edge": lambda: _both(1, 1, [[0, 0]]),
+    "isolated": _isolated,
+}
+
+
 @pytest.mark.parametrize("order", sorted(ref_ranking.RANKINGS))
-@pytest.mark.parametrize("gen", range(len(GENERATORS)))
+@pytest.mark.parametrize("gen", [*range(len(GENERATORS)), *GRAPHS])
 def test_rankings_and_preprocess_match_reference(order, gen):
-    r, p = _pair(*GENERATORS[gen])
+    r, p = GRAPHS[gen]() if gen in GRAPHS else _pair(*GENERATORS[gen])
     ro = ref_ranking.make_order(r, order)
     po = ranking.make_order(p, order, device="cpu")
     assert np.array_equal(po, ro)
@@ -62,6 +112,24 @@ def test_rankings_and_preprocess_match_reference(order, gen):
             assert a.dtype == b.dtype and np.array_equal(a, b), f.name
         else:
             assert a == b, f.name
+
+
+@pytest.mark.parametrize("bad", ["short", "out-of-range", "duplicate"])
+def test_preprocess_rejects_bad_order_like_reference(bad):
+    """A bad order raises the reference's error, with its message, and
+    before any device work: on a host without a card, ``device="cuda"``
+    still gives the validation error."""
+    r, p = _pair(*GENERATORS[0])
+    order = ref_ranking.make_order(r, "degree")
+    order = {"short": order[:-1],
+             "out-of-range": np.where(order == 0, r.n, order),
+             "duplicate": np.where(order == 0, 1, order)}[bad]
+    with pytest.raises(ref_graph.GraphValidationError) as want:
+        ref_graph.preprocess(r, order)
+    for device in ("cpu", "cuda"):
+        with pytest.raises(GraphValidationError) as got:
+            graph.preprocess(p, order, device=device)
+        assert str(got.value) == str(want.value)
 
 
 def test_rankings_registry_matches_reference():

@@ -5,7 +5,12 @@ element for element, padding slots included; ``count_butterflies``
 makes that pass once (``report.phases["count.wedge_counts"].n == 1``)
 and never calls ``host_wedge_counts``, on every engine, mode, forced
 descent, shrink retry and batch aggregation, with the counts and the
-report's plan summary of the host-planned path."""
+report's plan summary of the host-planned path. The pass of a count
+runs on the graph that the count's CSR build left on its device
+(``wedges.preprocess_device``, counter ``csr_reused`` 1), equal tensor
+for tensor to an upload of the host ``RankedGraph``, which the same
+build gives array for array on the CPU and on the card; only
+``count_from_ranked`` called alone uploads (``csr_reused`` 0)."""
 import sys
 
 import pytest
@@ -16,10 +21,15 @@ import numpy as np  # noqa: E402
 
 from repro_torch.core import BipartiteGraph, count_butterflies  # noqa: E402
 from repro_torch.core import count as count_mod  # noqa: E402
-from repro_torch.core import oracle, pipeline, resilience  # noqa: E402
+from repro_torch.core import oracle, pipeline, resilience, spans  # noqa: E402
+from repro_torch.core import wedges  # noqa: E402
 from repro_torch.core.graph import preprocess  # noqa: E402
 from repro_torch.core.ranking import make_order  # noqa: E402
-from repro_torch.core.wedges import host_wedge_counts  # noqa: E402
+from repro_torch.core.wedges import (  # noqa: E402
+    device_graph,
+    host_wedge_counts,
+    preprocess_device,
+)
 from repro_torch.testing import faults  # noqa: E402
 
 
@@ -186,3 +196,80 @@ def test_count_from_ranked_alone_makes_its_own_pass(engine, monkeypatch):
         rg, g, "all", (total.numpy(), bv.numpy(), be.numpy()), "sort",
         "degree")
     _assert_counts(r, g, "all")
+
+
+# the CSR build on the count's device: the CPU, and the card where there
+# is one (decided in the test)
+DEVICES = ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)]
+
+
+def _on(device):
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return device
+
+
+def _assert_ranked_equal(a, b):
+    for f in ("offsets", "neighbors", "edge_src", "undirected_id",
+              "side_of", "orig_id", "rank_of_u", "rank_of_v"):
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype and np.array_equal(x, y), f
+    for f in ("n", "m", "n_u", "n_v", "order_name"):
+        assert getattr(a, f) == getattr(b, f), f
+
+
+@pytest.mark.parametrize("device", DEVICES)
+def test_csr_build_on_device_equals_host_build_and_upload(device):
+    device = _on(device)
+    for name in sorted(GRAPHS):
+        g = GRAPHS[name]()
+        order = make_order(g, "degree", device="cpu")
+        want = preprocess(g, order, order_name="degree")
+        _assert_ranked_equal(
+            preprocess(g, order, order_name="degree", device=device), want)
+        rg, dg = preprocess_device(g, order, "degree", device)
+        _assert_ranked_equal(rg, want)
+        up = device_graph(want, device)
+        for f in ("offsets", "neighbors", "edge_src", "undirected_id",
+                  "side_of"):
+            x, y = getattr(dg, f), getattr(up, f)
+            assert x.dtype == y.dtype and x.device == y.device, f
+            assert torch.equal(x, y), f
+        assert (dg.n, dg.m) == (up.n, up.m)
+
+
+def _no_upload(monkeypatch):
+    def boom(*_a, **_k):
+        raise AssertionError("device_graph called on the count path")
+
+    monkeypatch.setattr(count_mod, "device_graph", boom)
+    monkeypatch.setattr(wedges, "device_graph", boom)
+
+
+@pytest.mark.parametrize("device", DEVICES)
+def test_count_takes_its_graph_from_the_csr_build(device, monkeypatch):
+    device = _on(device)
+    g = _rand(3000, 2500, 60_000, 7) if device == "cuda" else GRAPHS["hub"]()
+    kw = dict(mode="all", engine="fused_cuda", count_dtype=torch.int64)
+    want = count_butterflies(g, device="cpu", **kw)
+    _no_upload(monkeypatch)
+    r = count_butterflies(g, device=device, **kw)
+    assert r.report.counters["csr_reused"] == 1
+    assert r.report.phases["count.csr"].n == 1
+    for f in ("total", "per_u", "per_v", "per_edge"):
+        assert np.array_equal(getattr(r, f), getattr(want, f)), f
+    if device == "cpu":
+        _assert_counts(r, g, "all")
+
+
+@pytest.mark.parametrize("device", DEVICES)
+def test_count_from_ranked_alone_uploads(device):
+    device = _on(device)
+    g = GRAPHS["rand0"]()
+    rg = _ranked(g, "degree")
+    with spans.root("count") as call:
+        total = count_mod.count_from_ranked(
+            rg, mode="global", engine="fused_cuda", count_dtype=torch.int64,
+            device=device)
+    assert call.counters == {"csr_reused": 0}
+    assert int(total) == oracle.global_count(g)
