@@ -929,7 +929,10 @@ def service_split(svc, query) -> None:
     from repro_torch.core import count as count_mod, pipeline
     from repro_torch.kernels import ops
 
-    targets = [(count_mod, "device_graph"), (count_mod, "slot_wedge_counts"),
+    # a miss uploads the resident graph and prepares it once, in its first
+    # rung attempt (count._prepare_ranked); the rung plans and builds the
+    # work list
+    targets = [(count_mod, "device_graph"), (count_mod, "prepare"),
                (pipeline, "plan_count"), (ops, "fused_work")]
     torch.cuda.synchronize()
     with HostTap(targets) as tap, profile(
@@ -1169,6 +1172,7 @@ def distributed_phase(g, wedges, dev, launches) -> None:
         CheckpointStore, peel_tips, peel_tips_stored, peel_wings,
     )
     from repro_torch.core import distributed as dist
+    from repro_torch.core.wedges import host_wedge_counts
     from repro_torch.data.graphs import powerlaw_bipartite
     from repro_torch.kernels import ops, ref as plain
     from repro_torch.launch.mesh import make_test_mesh
@@ -1234,7 +1238,9 @@ def distributed_phase(g, wedges, dev, launches) -> None:
                 g, mesh, mode=mode, count_dtype=torch.int64,
                 engine="fused", max_chunk=max_chunk))
         if holders is None:
-            tiles, cap = dist.plan_fused_partition(rg, 4, max_chunk=max_chunk)
+            tiles, cap = dist.plan_fused_partition(
+                rg, 4, max_chunk=max_chunk,
+                wv_slots=host_wedge_counts(rg, "low"))
             held = (tiles[:, :, 1] > tiles[:, :, 0]).sum(1)
             holders = int((held > 0).sum())
             print(f"distributed count plan: tiles per worker {held.tolist()}, "

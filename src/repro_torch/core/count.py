@@ -18,17 +18,16 @@ back into a :class:`CountResult`.
 (``wedges.preprocess_device``, span ``count.csr``): the host
 ``RankedGraph`` that the planners and ``interpret_counts`` read comes
 from one copy of the build's buffer, and the ``DeviceGraph`` is that
-buffer, never uploaded. The per-slot wedge counts that plan a count are
-computed once per call on that graph (``wedges.slot_wedge_counts``, span
-``count.wedge_counts``) and copied to the host once; the graph and both
-copies of the array serve the report-only planning pass and every rung
-attempt (shrink retries, lower rungs, the batch aggregations).
-:func:`count_from_ranked` called alone, as the query service calls it,
-uploads its ``RankedGraph`` and makes its own single pass the same way
-(counter ``csr_reused`` 0, against 1 in a count). The numpy
-``wedges.host_wedge_counts`` gives the same array; it stays the mesh
-planner's (``core/distributed.py``), the planners' default when no array
-is given, and the tests' oracle.
+buffer, never uploaded. :func:`count_from_ranked` uploads its
+``RankedGraph`` instead, and the query service uploads its resident one
+once per count miss, on the first rung attempt that counts. Each
+prepares the graph once (``wedges.prepare``, span
+``count.wedge_counts``): one ``slot_wedge_counts`` pass on the device
+graph and one copy to the host. Every count on that
+:class:`~repro_torch.core.wedges.PreparedGraph` runs through one
+executor, and every ladder through one rung builder, so the report-only
+planning pass and every rung attempt (shrink retries, lower rungs, the
+batch aggregations) plan and run from the same graph and wedge counts.
 
 Engines, one-to-one with the reference package's (:data:`ENGINE_MAP`):
 
@@ -78,15 +77,16 @@ from .device import resolve_device
 from .graph import BipartiteGraph, RankedGraph
 from .ranking import make_order
 from .wedges import (
-    DeviceGraph,
+    PreparedGraph,
     auto_chunk_budget,
     device_graph,
     gather_wedges,
     greedy_vertex_blocks,
+    prepare,
     preprocess_device,
     shrink_budget,
-    slot_wedge_counts,
     wedge_offsets,
+    wedge_prefix,
 )
 
 __all__ = [
@@ -160,31 +160,6 @@ class CountResult(NamedTuple):
     report: Optional["_res.ExecutionReport"] = None  # resilience audit
 
 
-class _SlotWedges(NamedTuple):
-    """One count's graph on its device and its per-slot wedge counts:
-    ``cnt`` on that device, ``host`` its numpy copy for the planners."""
-
-    dg: DeviceGraph
-    direction: str
-    cnt: torch.Tensor  # int64 (e_pad,)
-    host: np.ndarray  # int64 (e_pad,)
-
-
-def _slot_wedges(rg: RankedGraph, direction: str, device,
-                 dg: Optional[DeviceGraph] = None) -> _SlotWedges:
-    """Compute the per-slot wedge counts of ``dg``, the device graph of
-    ``rg`` (None: upload ``rg`` to ``device``), on its device, with one
-    copy to the host: the one wedge-count pass of a count (span
-    ``count.wedge_counts``; counter ``csr_reused``, 1 when ``dg`` was
-    given)."""
-    with _spans.span("count.wedge_counts"):
-        _spans.add("csr_reused", dg is not None)
-        if dg is None:
-            dg = device_graph(rg, device)
-        cnt = slot_wedge_counts(dg, direction)
-        return _SlotWedges(dg, direction, cnt, cnt.cpu().numpy())
-
-
 def _resolve_chunk_budget(max_chunk, device) -> Optional[int]:
     """``max_chunk`` knob: None (no streaming for the materializing
     engines; auto for the fused engines), "auto" (device-memory-derived
@@ -197,42 +172,41 @@ def _resolve_chunk_budget(max_chunk, device) -> Optional[int]:
 
 
 def _plan_from_knobs(
-    rg: RankedGraph,
+    pg: PreparedGraph,
     *,
     aggregation: str,
     mode: str,
-    direction: str,
     dtype,
     engine: str,
     max_chunk,
     hash_bits: Optional[int],
-    device,
-    wv_slots: np.ndarray,
 ) -> Optional["_pipeline.WedgePlan"]:
-    """Resolve the knob surface into a counting plan: the one place the
-    budget rules live. Returns None for the materializing torch/cuda
-    path under budget. Unlike the reference's ``fused_pallas``, the
-    ``fused_cuda`` budget is not clamped to a small kernel tile: the
-    kernel's hash table is sized from the plan (``MAX_TILE_CAP``). The
-    batch aggregations cut their own blocks: no plan."""
+    """Resolve the knob surface into a counting plan on ``pg``: the one
+    place the budget rules live. Returns None for the materializing
+    torch/cuda path under budget. Unlike the reference's
+    ``fused_pallas``, the ``fused_cuda`` budget is not clamped to a
+    small kernel tile: the kernel's hash table is sized from the plan
+    (``MAX_TILE_CAP``). The batch aggregations cut their own blocks: no
+    plan."""
     if aggregation in BATCH_AGGREGATIONS:
         return None
+    device = pg.dg.device
     budget = _resolve_chunk_budget(max_chunk, device)
     if engine in ("fused", "fused_cuda"):
         if budget is None:
             budget = auto_chunk_budget(device)
-    elif budget is None or int(wv_slots.sum()) <= budget:
+    elif budget is None or int(pg.host.sum()) <= budget:
         return None
     return _pipeline.plan_count(
-        rg,
+        pg.rg,
         mode=mode,
-        direction=direction,
+        direction=pg.direction,
         aggregation=aggregation,
         budget=budget,
         dtype=dtype,
         hash_bits=hash_bits,
         engine=engine,
-        wv_slots=wv_slots,
+        wv_slots=pg.host,
     )
 
 
@@ -247,8 +221,8 @@ def _batch_bounds(wv: np.ndarray, n: int, wedge_aware: bool, rows: int,
     )
 
 
-def _count_batch(sw: _SlotWedges, rg: RankedGraph, *, wedge_aware: bool,
-                 rows: int, target: int, mode: str, dtype: torch.dtype):
+def _count_batch(pg: PreparedGraph, *, wedge_aware: bool, rows: int,
+                 target: int, mode: str, dtype: torch.dtype):
     """Batch aggregation (the paper's simple and wedge-aware batching).
 
     Each block owns the wedges of a contiguous range of iterating
@@ -261,13 +235,10 @@ def _count_batch(sw: _SlotWedges, rg: RankedGraph, *, wedge_aware: bool,
     group's representative, which adds the group's C(d, 2) (the
     reference's replacement for the serial "first time I see this
     endpoint" test). No block reads the device back."""
-    dg, direction, cnt, wv_slots = sw
-    n_real = 2 * rg.m
-    wv = np.zeros(rg.n_pad, dtype=np.int64)
-    np.add.at(wv, rg.edge_src[:n_real].astype(np.int64), wv_slots[:n_real])
-    bounds, _ = _batch_bounds(wv, rg.n_pad, wedge_aware, rows, target)
-    first = np.concatenate([[0], np.cumsum(wv_slots)])[
-        rg.offsets.astype(np.int64)]  # flat id of each vertex's first wedge
+    rg, dg, direction, cnt, host = pg
+    first = wedge_prefix(rg.offsets, host)[1]  # each vertex's first wedge
+    bounds, _ = _batch_bounds(np.diff(first), rg.n_pad, wedge_aware, rows,
+                              target)
     n_pad, m, dev = dg.n_pad, dg.m, dg.device
     off, nbr = dg.offsets.long(), dg.neighbors.long()
     src, uid = dg.edge_src.long(), dg.undirected_id.long()
@@ -351,20 +322,31 @@ def count_from_ranked(
     auto for the fused engines). ``hash_bits`` overrides the hash-table
     size. ``batch_rows``/``batch_target`` size the blocks of
     ``aggregation="batch"|"batch_wa"``, which run on ``engine="torch"``
-    only (ValueError otherwise). ``device=None`` means CUDA."""
-    return _count_from_ranked(
-        rg, None, aggregation=aggregation, mode=mode, cache_opt=cache_opt,
-        count_dtype=count_dtype, batch_rows=batch_rows,
-        batch_target=batch_target, engine=engine, max_chunk=max_chunk,
-        hash_bits=hash_bits, device=device,
+    only (ValueError otherwise). ``device=None`` means CUDA. The graph
+    is uploaded to ``device`` and prepared there (span
+    ``count.wedge_counts``) once the knobs are found valid."""
+    _check_knobs(engine, mode, aggregation)
+    pg = _prepare_ranked(rg, "high" if cache_opt else "low", device)
+    return _count_prepared(
+        pg, aggregation=aggregation, mode=mode,
+        dtype=torch.int32 if count_dtype is None else count_dtype,
+        engine=engine, max_chunk=max_chunk, hash_bits=hash_bits,
+        batch_rows=batch_rows, batch_target=batch_target,
     )
 
 
-def _count_from_ranked(rg, sw: Optional[_SlotWedges], *, aggregation, mode,
-                       cache_opt, count_dtype, batch_rows, batch_target,
-                       engine, max_chunk, hash_bits, device):
-    """:func:`count_from_ranked` on ``sw``, the count's device graph and
-    wedge counts (None: this call makes its own pass)."""
+def _prepare_ranked(rg: RankedGraph, direction: str,
+                    device) -> PreparedGraph:
+    """Upload ``rg`` to ``device`` and prepare it: the span
+    ``count.wedge_counts`` holds the upload and the pass."""
+    with _spans.span("count.wedge_counts"):
+        return prepare(rg, device_graph(rg, resolve_device(device)),
+                       direction)
+
+
+def _check_knobs(engine: str, mode: str, aggregation: str) -> None:
+    """ValueError for an engine, mode or aggregation the engines do not
+    know, and for a batch aggregation off the torch engine."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be {'|'.join(ENGINES)}, got {engine}")
     if mode not in MODES:
@@ -374,18 +356,54 @@ def _count_from_ranked(rg, sw: Optional[_SlotWedges], *, aggregation, mode,
             f"aggregation must be {'|'.join(AGGREGATIONS)}, got "
             f"{aggregation}"
         )
-    device = resolve_device(device)
+    if aggregation in BATCH_AGGREGATIONS and engine != "torch":
+        raise ValueError(
+            "batch aggregations fuse their own accumulation and do "
+            "not route through the cuda or fused engines; use "
+            "engine='torch'"
+        )
+
+
+def _count_prepared(pg: PreparedGraph, *, aggregation, mode, dtype, engine,
+                    max_chunk, hash_bits, batch_rows, batch_target):
+    """Count on a prepared graph: the one executor of every count path.
+    Returns rank-space tensors on ``pg``'s device in ``dtype``; int32
+    counts are accumulated in int64 and narrowed after one host check
+    (:func:`narrow_counts`). The fault sites ``count.<engine>`` fire
+    here, once per call."""
+    _check_knobs(engine, mode, aggregation)
     _faults.maybe_oom(f"count.{engine}")
     _faults.maybe_slow_rung(f"count.{engine}")
     hash_bits = _faults.hash_bits_override(f"count.{engine}", hash_bits)
-    want = torch.int32 if count_dtype is None else count_dtype
-    out = _count_ranked(
-        rg, sw, aggregation=aggregation, mode=mode, cache_opt=cache_opt,
-        dtype=torch.int64 if want == torch.int32 else want,
-        batch_rows=batch_rows, batch_target=batch_target, engine=engine,
-        max_chunk=max_chunk, hash_bits=hash_bits, device=device,
-    )
-    return narrow_counts(out, want) if want == torch.int32 else out
+    acc = torch.int64 if dtype == torch.int32 else dtype
+    if aggregation == "auto" and engine not in ("fused", "fused_cuda"):
+        # per-tile strategy choice needs a tile plan; the materializing
+        # rungs resolve to sort (both strategies are exact)
+        aggregation = "sort"
+    if aggregation in BATCH_AGGREGATIONS:
+        out = _count_batch(
+            pg, wedge_aware=aggregation == "batch_wa", rows=int(batch_rows),
+            target=int(batch_target), mode=mode, dtype=acc,
+        )
+    else:
+        with _spans.span("count.plan"):
+            plan = _plan_from_knobs(
+                pg, aggregation=aggregation, mode=mode, dtype=acc,
+                engine=engine, max_chunk=max_chunk, hash_bits=hash_bits,
+            )
+        if plan is not None:
+            out = _pipeline.execute_count_plan(pg, plan)
+        else:
+            # materializing torch/cuda path: the whole wedge array in
+            # one batch
+            w_total = int(pg.host.sum())
+            w_cap = max(128, ((w_total + 127) // 128) * 128)
+            w = gather_wedges(pg.dg, pg.cnt, w_cap, pg.direction)
+            bits = table_bits_for(w_cap) if hash_bits is None else hash_bits
+            out, _ok = _pipeline.aggregate_and_accumulate(
+                pg.dg, w, aggregation, mode, acc, engine, bits
+            )
+    return narrow_counts(out, dtype) if dtype == torch.int32 else out
 
 
 def narrow_counts(out, dtype: torch.dtype):
@@ -409,55 +427,39 @@ def narrow_counts(out, dtype: torch.dtype):
     return narrowed if isinstance(out, tuple) else narrowed[0]
 
 
-def _count_ranked(rg, sw, *, aggregation, mode, cache_opt, dtype, batch_rows,
-                  batch_target, engine, max_chunk, hash_bits, device):
-    """:func:`count_from_ranked` after its checks, in ``dtype``."""
-    direction = "high" if cache_opt else "low"
-    if aggregation == "auto" and engine not in ("fused", "fused_cuda"):
-        # per-tile strategy choice needs a tile plan; the materializing
-        # rungs resolve to sort (both strategies are exact)
-        aggregation = "sort"
-    if sw is None:
-        sw = _slot_wedges(rg, direction, device)
-    if aggregation in BATCH_AGGREGATIONS:
-        if engine != "torch":
-            raise ValueError(
-                "batch aggregations fuse their own accumulation and do "
-                "not route through the cuda or fused engines; use "
-                "engine='torch'"
-            )
-        return _count_batch(
-            sw, rg, wedge_aware=aggregation == "batch_wa",
-            rows=int(batch_rows), target=int(batch_target), mode=mode,
-            dtype=dtype,
-        )
-    with _spans.span("count.plan"):
-        plan = _plan_from_knobs(
-            rg,
-            aggregation=aggregation,
-            mode=mode,
-            direction=direction,
-            dtype=dtype,
-            engine=engine,
-            max_chunk=max_chunk,
-            hash_bits=hash_bits,
-            device=device,
-            wv_slots=sw.host,
-        )
-    if plan is not None:
-        return _pipeline.execute_count_plan(
-            sw.dg, plan, sw.cnt, rg.offsets, sw.host
-        )
-    # materializing torch/cuda path: the whole wedge array in one batch
-    dg = sw.dg
-    w_total = int(sw.host.sum())
-    w_cap = max(128, ((w_total + 127) // 128) * 128)
-    w = gather_wedges(dg, sw.cnt, w_cap, direction)
-    bits = table_bits_for(w_cap) if hash_bits is None else hash_bits
-    out, _ok = _pipeline.aggregate_and_accumulate(
-        dg, w, aggregation, mode, dtype, engine, bits
-    )
-    return out
+def _count_rungs(prepared, engines, *, aggregation, mode, dtype, max_chunk,
+                 batch_rows):
+    """One ladder rung per engine of ``engines``, each a
+    :func:`_count_prepared` call whose counts come back to the host
+    (span ``count.rung``). ``prepared()`` gives the
+    :class:`~repro_torch.core.wedges.PreparedGraph`: it is called inside
+    the first attempt that counts and its graph kept for every later
+    retry and rung, so a failure while preparing is that attempt's
+    outcome, and a rung that never runs prepares nothing. A
+    RESOURCE_EXHAUSTED re-entry halves the budget: ``max_chunk``'s, or
+    the device's auto budget where it gives none."""
+    held = []
+
+    def make(engine):
+        def run(shrinks):
+            if not held:
+                held.append(prepared())
+            pg = held[0]
+            mc = max_chunk
+            if shrinks:
+                base = _resolve_chunk_budget(mc, pg.dg.device)
+                if base is None:
+                    base = auto_chunk_budget(pg.dg.device)
+                mc = shrink_budget(base, shrinks)
+            return _to_host(_count_prepared(
+                pg, aggregation=aggregation, mode=mode, dtype=dtype,
+                engine=engine, max_chunk=mc, hash_bits=None,
+                batch_rows=batch_rows, batch_target=BATCH_TARGET,
+            ))
+
+        return _res.Rung(engine, _spans.spanned("count.rung", run))
+
+    return [make(e) for e in engines]
 
 
 def count_validator(g: BipartiteGraph, mode: str):
@@ -599,49 +601,17 @@ def count_butterflies(
         ladder = (engine,)  # batch fuses its own accumulation: one rung
     # the one wedge-count pass, on the CSR build's device graph: the
     # report-only pass and every rung attempt plan and run from it
-    sw = _slot_wedges(rg, "high" if cache_opt else "low", device, dg)
-
-    def _make_rung(eng):
-        def run(shrinks):
-            mc = max_chunk
-            if shrinks:
-                base = _resolve_chunk_budget(mc, device)
-                if base is None:
-                    base = auto_chunk_budget(device)
-                mc = shrink_budget(base, shrinks)
-            out = _count_from_ranked(
-                rg,
-                sw,
-                aggregation=aggregation,
-                mode=mode,
-                cache_opt=cache_opt,
-                count_dtype=count_dtype,
-                batch_rows=batch_rows,
-                batch_target=BATCH_TARGET,
-                engine=eng,
-                max_chunk=mc,
-                hash_bits=None,
-                device=device,
-            )
-            return _to_host(out)
-
-        return _res.Rung(eng, _spans.spanned("count.rung", run))
+    with _spans.span("count.wedge_counts"):
+        pg = prepare(rg, dg, "high" if cache_opt else "low")
+    dtype = torch.int32 if count_dtype is None else count_dtype
 
     # report-only planning pass for the requested engine: what the first
     # rung will execute, recorded before any rung runs
     with _spans.span("count.plan_report"):
         try:
             plan = _plan_from_knobs(
-                rg,
-                aggregation=aggregation,
-                mode=mode,
-                direction=sw.direction,
-                dtype=torch.int32 if count_dtype is None else count_dtype,
-                engine=engine,
-                max_chunk=max_chunk,
-                hash_bits=None,
-                device=device,
-                wv_slots=sw.host,
+                pg, aggregation=aggregation, mode=mode, dtype=dtype,
+                engine=engine, max_chunk=max_chunk, hash_bits=None,
             )
         except _res.ResilienceError:
             plan = None
@@ -651,7 +621,9 @@ def count_butterflies(
     out, report = _pipeline.execute_ladder(
         "count",
         policy,
-        [_make_rung(e) for e in ladder],
+        _count_rungs(lambda: pg, ladder, aggregation=aggregation,
+                     mode=mode, dtype=dtype, max_chunk=max_chunk,
+                     batch_rows=batch_rows),
         _spans.spanned("count.validate", validate),
         plan=plan,
     )

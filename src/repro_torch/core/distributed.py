@@ -48,7 +48,7 @@ from . import pipeline as _pipeline
 from .aggregate import aggregate_sort
 from .count import narrow_counts
 from .device import DeviceMesh, resolve_device, worker_device
-from .graph import BipartiteGraph, RankedGraph, preprocess
+from .graph import BipartiteGraph, RankedGraph
 from .ranking import make_order
 from .resilience import (
     CapacityOverflow,
@@ -62,9 +62,11 @@ from .resilience import (
 from .wedges import (
     auto_chunk_budget,
     device_graph,
-    host_wedge_counts,
+    prepare,
+    preprocess_device,
     slot_wedge_counts,
     wedge_offsets,
+    wedge_prefix,
     wedges_at,
 )
 
@@ -197,17 +199,6 @@ def launch_device_worker(
 # ---------------------------------------------------------------------------
 
 
-def _vertex_loads(rg: RankedGraph, direction: str):
-    """Per-vertex wedge loads (by iterating endpoint) and their prefix
-    sum over rank space: the shared host-planning inputs."""
-    cnt = host_wedge_counts(rg, direction)
-    src = rg.edge_src[: 2 * rg.m]
-    wv = np.zeros(rg.n_pad + 1, dtype=np.int64)
-    np.add.at(wv, src, cnt[: 2 * rg.m])
-    voff = np.concatenate([[0], np.cumsum(wv[: rg.n_pad])])
-    return wv[: rg.n_pad], voff
-
-
 def _device_vertex_starts(voff: np.ndarray, n_pad: int, n_dev: int):
     """Greedy wedge-balanced vertex boundaries, one range per worker."""
     total = int(voff[-1])
@@ -221,14 +212,17 @@ def _device_vertex_starts(voff: np.ndarray, n_pad: int, n_dev: int):
     return np.asarray(starts, dtype=np.int64)
 
 
-def plan_partition(rg: RankedGraph, n_dev: int, direction: str = "low"):
-    """Wedge-balanced, vertex-aligned worker partition (host planning).
+def plan_partition(rg: RankedGraph, n_dev: int, direction: str = "low", *,
+                   wv_slots: np.ndarray):
+    """Wedge-balanced, vertex-aligned worker partition (host planning)
+    from the per-slot wedge counts ``wv_slots`` of ``direction`` (a
+    prepared graph's ``host``).
 
     Returns ``(w_start (n_dev + 1,), w_cap)``: worker d owns the flat
     wedge ids ``[w_start[d], w_start[d+1])``; ``w_cap`` is the largest
     share rounded up to 128. The values are the reference's (which
     stores ``w_start`` as int32; the port's flat ids are int64)."""
-    _, voff = _vertex_loads(rg, direction)
+    voff = wedge_prefix(rg.offsets, wv_slots)[1]
     starts = _device_vertex_starts(voff, rg.n_pad, n_dev)
     w_start = voff[starts]
     per_dev = np.diff(w_start)
@@ -238,9 +232,11 @@ def plan_partition(rg: RankedGraph, n_dev: int, direction: str = "low"):
 
 
 def plan_fused_partition(rg: RankedGraph, n_dev: int, direction: str = "low",
-                         max_chunk="auto", device=None):
-    """Per-worker vertex-aligned tile plan for the fused engine: the
-    flat wedge space tiled once by ``pipeline.plan_count`` (at most
+                         max_chunk="auto", device=None, *,
+                         wv_slots: np.ndarray):
+    """Per-worker vertex-aligned tile plan for the fused engine, from the
+    per-slot wedge counts ``wv_slots`` of ``direction``: the flat wedge
+    space tiled once by ``pipeline.plan_count`` (at most
     ``max_chunk`` wedges per tile; ``"auto"`` derives the budget from
     ``device``'s free memory, ``wedges.auto_chunk_budget``), then split
     across workers greedily by wedge load (``pipeline.plan_partition``).
@@ -254,7 +250,7 @@ def plan_fused_partition(rg: RankedGraph, n_dev: int, direction: str = "low",
         budget = int(max_chunk)
     plan = _pipeline.plan_count(
         rg, mode="global", direction=direction, aggregation="sort",
-        budget=budget, engine="fused",
+        budget=budget, engine="fused", wv_slots=wv_slots,
     )
     parts = _pipeline.plan_partition(plan, n_dev)
     return _pipeline.partition_tile_array(parts)
@@ -423,13 +419,24 @@ def distributed_count(
     n_dev = len(workers)
     dev0 = workers[0]
     direction = "high" if cache_opt else "low"
-    rg = preprocess(g, make_order(g, order, device=dev0), order_name=order)
+    if engine == "fused" and max_chunk in (None, "auto"):
+        # read the free memory before this call puts anything on dev0
+        max_chunk = auto_chunk_budget(dev0)
+    # prepared once, on the first worker: the plan and w_off read its
+    # host wedge counts, and only those are kept, so that dev0 holds no
+    # graph but its worker's own upload
+    rg, dg = preprocess_device(g, make_order(g, order, device=dev0), order,
+                               dev0)
+    wv_slots = prepare(rg, dg, direction).host
+    del dg
     if engine == "fused":
         bounds, cap = plan_fused_partition(
-            rg, n_dev, direction, max_chunk=max_chunk, device=dev0
+            rg, n_dev, direction, max_chunk=max_chunk, device=dev0,
+            wv_slots=wv_slots,
         )
     else:
-        w_start, cap = plan_partition(rg, n_dev, direction)
+        w_start, cap = plan_partition(rg, n_dev, direction,
+                                      wv_slots=wv_slots)
         bounds = np.stack([w_start[:-1], w_start[1:]], axis=1)
     want = torch.int32 if count_dtype is None else count_dtype
     fn = distributed_count_fn(
@@ -440,8 +447,7 @@ def distributed_count(
     )
     w_off = None
     if precomputed_offsets:
-        cnt_host = host_wedge_counts(rg, direction)
-        w_off = np.concatenate([[0], np.cumsum(cnt_host)]).astype(np.int64)
+        w_off = wedge_prefix(rg.offsets, wv_slots)[0]
     out = fn(rg, bounds, w_off)
     if want == torch.int32:
         out = narrow_counts(out, want)

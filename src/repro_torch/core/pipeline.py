@@ -53,11 +53,12 @@ from .aggregate import (
 from .graph import RankedGraph
 from .wedges import (
     DeviceGraph,
+    PreparedGraph,
     Wedges,
     aligned_tile_end,
-    host_wedge_counts,
     plan_wedge_chunks,
     wedge_offsets,
+    wedge_prefix,
     wedges_at,
 )
 
@@ -82,7 +83,6 @@ __all__ = [
     "count_tile_step",
     "run_count_tiles",
     "fused_host_inputs",
-    "fused_tile_inputs",
     "run_fused_cuda_tiles",
     "execute_count_plan",
     # plan + execute: peeling
@@ -301,11 +301,13 @@ def plan_count(
     hash_bits: Optional[int] = None,
     engine: str = "fused",
     density_threshold: float = DENSITY_HASH_THRESHOLD,
-    wv_slots: Optional[np.ndarray] = None,
+    wv_slots: np.ndarray,
 ) -> WedgePlan:
-    """Plan a tiled counting workload: vertex-aligned tile boundaries
-    (``wedges.plan_wedge_chunks`` under ``budget``), exact per-tile
-    wedge totals, and the per-tile aggregation strategy.
+    """Plan a tiled counting workload from the per-slot wedge counts
+    ``wv_slots`` of ``direction`` (a prepared graph's ``host``):
+    vertex-aligned tile boundaries (``wedges.plan_wedge_chunks`` under
+    ``budget``), exact per-tile wedge totals, and the per-tile
+    aggregation strategy.
 
     ``aggregation="auto"`` resolves sort-vs-hash per tile from the
     density estimate (wedges over a lower bound on distinct endpoint
@@ -319,18 +321,10 @@ def plan_count(
             "plan_count aggregation must be sort|hash|histogram|auto, "
             f"got {aggregation}"
         )
-    if wv_slots is None:
-        wv_slots = host_wedge_counts(rg, direction)
     bounds, chunk_cap = plan_wedge_chunks(
         rg, direction, int(budget), wv_slots=wv_slots
     )
-    n_real = 2 * rg.m
-    wv = np.zeros(rg.n_pad, dtype=np.int64)
-    if n_real:
-        np.add.at(
-            wv, rg.edge_src[:n_real].astype(np.int64), wv_slots[:n_real]
-        )
-    voff = np.concatenate([[0], np.cumsum(wv)])
+    voff = wedge_prefix(rg.offsets, wv_slots)[1]
     tile_wedges = (voff[bounds[1:]] - voff[bounds[:-1]]).astype(np.int64)
     if aggregation == "auto":
         mx = _tile_pair_floor(rg, wv_slots)
@@ -701,17 +695,9 @@ def fused_host_inputs(plan: WedgePlan, rg_offsets: np.ndarray,
     wedge ranges ``[ws, we)`` as an (n_tiles, 2) int64 array, and the
     int64 wedge prefix ``w_off`` (e_pad + 1,)."""
     bounds = np.asarray(plan.bounds, np.int64)
-    w_off = np.concatenate([[0], np.cumsum(wv_slots)]).astype(np.int64)
-    off = rg_offsets.astype(np.int64)
-    tb = np.stack([w_off[off[bounds[:-1]]], w_off[off[bounds[1:]]]], axis=1)
+    w_off, voff = wedge_prefix(rg_offsets, wv_slots)
+    tb = np.stack([voff[bounds[:-1]], voff[bounds[1:]]], axis=1)
     return tb.reshape(-1, 2), w_off
-
-
-def fused_tile_inputs(plan: WedgePlan, rg_offsets: np.ndarray,
-                      wv_slots: np.ndarray, device):
-    """:func:`fused_host_inputs` with ``w_off`` on ``device``."""
-    tb, w_off = fused_host_inputs(plan, rg_offsets, wv_slots)
-    return tb, torch.as_tensor(w_off, device=device)
 
 
 def run_fused_cuda_tiles(
@@ -771,33 +757,21 @@ def run_fused_cuda_tiles(
     return total, vert, edge
 
 
-def execute_count_plan(
-    dg: DeviceGraph,
-    plan: WedgePlan,
-    cnt: torch.Tensor,
-    rg_offsets: Optional[np.ndarray] = None,
-    wv_slots: Optional[np.ndarray] = None,
-):
-    """Execute a counting plan on its device graph and return the
-    rank-space counts (a scalar / array / triple per the accumulator
-    mode). ``cnt`` is the plan's per-slot wedge counts on ``dg``'s
-    device (``wedges.slot_wedge_counts``). ``engine="fused_cuda"``
-    dispatches the fused kernel (``rg_offsets`` and ``wv_slots``, the
-    host copy of ``cnt``, are its host-side planning inputs; the
-    kernel's wedge prefix is uploaded from the host's); everything else
-    streams through :func:`run_count_tiles`, with the kernels of the
-    ``cuda`` engine inside each tile."""
+def execute_count_plan(pg: PreparedGraph, plan: WedgePlan):
+    """Execute a counting plan on its prepared graph
+    (``wedges.prepare``) and return the rank-space counts (a scalar /
+    array / triple per the accumulator mode). ``engine="fused_cuda"``
+    dispatches the fused kernel (the host CSR offsets and the host copy
+    of the wedge counts are its host-side planning inputs; the kernel's
+    wedge prefix is uploaded from the host's); everything else streams
+    through :func:`run_count_tiles` on the device's wedge counts, with
+    the kernels of the ``cuda`` engine inside each tile."""
     if plan.kind != "count":
         raise ValueError(f"not a counting plan: kind={plan.kind!r}")
     if plan.engine == "fused_cuda":
-        if rg_offsets is None or wv_slots is None:
-            raise ValueError(
-                "engine='fused_cuda' execution needs rg_offsets and "
-                "wv_slots (host planning inputs)"
-            )
-        return run_fused_cuda_tiles(dg, plan, rg_offsets, wv_slots)
+        return run_fused_cuda_tiles(pg.dg, plan, pg.rg.offsets, pg.host)
     engine = "cuda" if plan.engine == "cuda" else "torch"
-    return run_count_tiles(dg, plan, cnt, engine=engine)
+    return run_count_tiles(pg.dg, plan, pg.cnt, engine=engine)
 
 
 # ---------------------------------------------------------------------------

@@ -16,9 +16,15 @@ default); ``direction="high"`` iterates from the highest-ranked endpoint
 (the Wang et al. cache optimization, paper §3.1.4): the wedge *set* is
 identical, the access pattern differs.
 
-The host planners (``host_wedge_counts``, ``greedy_vertex_blocks``,
-``plan_wedge_chunks``, ``degree_sorted_csr``) are numpy and identical to
-the reference package's, so plans compare field for field; the device
+Every count path plans and runs from one :class:`PreparedGraph`
+(:func:`prepare`): the host ``RankedGraph``, its ``DeviceGraph`` and the
+per-slot wedge counts of one ``slot_wedge_counts`` pass on that graph's
+device, with one copy to the host. The host planners
+(``greedy_vertex_blocks``, ``plan_wedge_chunks``, ``degree_sorted_csr``)
+are numpy and identical to the reference package's, so plans compare
+field for field; they take the per-slot wedge counts from their caller
+and read per-vertex loads from :func:`wedge_prefix`. The numpy
+``host_wedge_counts`` is the tests' oracle for the pass. The device
 side is PyTorch on the tensors of a :class:`DeviceGraph`. Flat wedge
 ids and wedge fields are int64 tensors.
 """
@@ -35,15 +41,18 @@ from .graph import BipartiteGraph, RankedGraph, build_csr, ranked_from_csr
 
 __all__ = [
     "DeviceGraph",
+    "PreparedGraph",
     "Wedges",
     "DEFAULT_CHUNK_BUDGET",
     "auto_chunk_budget",
     "shrink_budget",
     "device_graph",
     "preprocess_device",
+    "prepare",
     "slot_wedge_counts",
     "host_wedge_counts",
     "wedge_offsets",
+    "wedge_prefix",
     "wedges_at",
     "gather_wedges",
     "degree_sorted_csr",
@@ -209,17 +218,14 @@ def slot_wedge_counts(dg: DeviceGraph, direction: str = "low") -> torch.Tensor:
 
 
 def host_wedge_counts(rg: RankedGraph, direction: str = "low") -> np.ndarray:
-    """Numpy mirror of slot_wedge_counts, for capacity planning.
+    """Numpy mirror of slot_wedge_counts: the tests' oracle for the
+    pass of :func:`prepare`, element for element the same. No module of
+    the program calls it; every count path plans from its prepared
+    graph's ``host`` copy.
 
     Vectorized via composite keys: CSR entries are globally lexsorted by
     (src, dst), so a per-slice searchsorted is a global searchsorted on
     ``src * n_pad1 + dst``.
-
-    The mesh planner (``core/distributed.py``) plans from it, and
-    ``plan_wedge_chunks`` and ``pipeline.plan_count`` fall back to it
-    when no array is given; the tests hold the device version against
-    it. A count (``core/count.py``) plans from the host copy of its one
-    ``slot_wedge_counts`` pass instead, element for element the same.
     """
     src = rg.edge_src.astype(np.int64)
     dst = rg.neighbors.astype(np.int64)
@@ -243,6 +249,43 @@ def wedge_offsets(cnt: torch.Tensor) -> torch.Tensor:
     """Exclusive prefix sum over per-slot wedge counts: int64 (e_pad + 1,)."""
     return torch.cat([cnt.new_zeros(1, dtype=torch.int64),
                       torch.cumsum(cnt, 0, dtype=torch.int64)])
+
+
+def wedge_prefix(offsets: np.ndarray, wv_slots: np.ndarray):
+    """The host wedge prefixes of per-slot wedge counts ``wv_slots``
+    (int64 (e_pad,)): ``(w_off, voff)``, with ``w_off`` the exclusive
+    prefix over slots, int64 (e_pad + 1,) (:func:`wedge_offsets` on the
+    host), and ``voff = w_off[offsets]``, int64 (n_pad + 1,): the flat
+    id of each vertex's first wedge, so ``voff[v + 1] - voff[v]`` is
+    vertex ``v``'s wedge load as iterating endpoint (padding slots
+    count 0 and padding vertices start at ``2m``)."""
+    w_off = np.zeros(wv_slots.shape[0] + 1, dtype=np.int64)
+    np.cumsum(wv_slots, out=w_off[1:])
+    return w_off, w_off[np.asarray(offsets, np.int64)]
+
+
+class PreparedGraph(NamedTuple):
+    """A graph ready to count: the host :class:`RankedGraph` the
+    planners and ``interpret_counts`` read, its :class:`DeviceGraph`,
+    and the per-slot wedge counts of ``direction`` from one
+    :func:`slot_wedge_counts` pass, ``cnt`` on ``dg``'s device and
+    ``host`` its one numpy copy."""
+
+    rg: RankedGraph
+    dg: DeviceGraph
+    direction: str
+    cnt: torch.Tensor  # int64 (e_pad,)
+    host: np.ndarray  # int64 (e_pad,)
+
+
+def prepare(rg: RankedGraph, dg: DeviceGraph,
+            direction: str) -> PreparedGraph:
+    """One :func:`slot_wedge_counts` pass on ``dg``, the device graph of
+    ``rg``, and one copy of its counts to the host. The caller says
+    where ``dg`` comes from: the CSR build on the count's device
+    (:func:`preprocess_device`) or an upload (:func:`device_graph`)."""
+    cnt = slot_wedge_counts(dg, direction)
+    return PreparedGraph(rg, dg, direction, cnt, cnt.cpu().numpy())
 
 
 def wedges_at(
@@ -364,9 +407,13 @@ def plan_wedge_chunks(
     direction: str = "low",
     max_chunk: int = 1 << 18,
     pad: int = 128,
-    wv_slots: Optional[np.ndarray] = None,
+    *,
+    wv_slots: np.ndarray,
 ) -> tuple[np.ndarray, int]:
-    """Vertex-aligned streaming chunks of the flat wedge space.
+    """Vertex-aligned streaming chunks of the flat wedge space, from the
+    per-slot wedge counts ``wv_slots`` (of ``direction``, which the
+    counts already carry; the argument keeps the reference's
+    signature).
 
     Flat wedge ids follow CSR slot order, so all wedges produced by one
     iterating endpoint are contiguous, and every group (x1, x2) lives
@@ -378,12 +425,9 @@ def plan_wedge_chunks(
     Returns (vertex boundaries (n_blocks + 1,), chunk_cap): the largest
     chunk's wedge count rounded up to ``pad``.
     """
-    if wv_slots is None:
-        wv_slots = host_wedge_counts(rg, direction)
-    n_real = 2 * rg.m
-    wv = np.zeros(rg.n_pad, dtype=np.int64)
-    np.add.at(wv, rg.edge_src[:n_real].astype(np.int64), wv_slots[:n_real])
-    bounds, chunk = greedy_vertex_blocks(wv, rg.n_pad, target=int(max_chunk))
+    voff = wedge_prefix(rg.offsets, wv_slots)[1]
+    bounds, chunk = greedy_vertex_blocks(np.diff(voff), rg.n_pad,
+                                         target=int(max_chunk))
     chunk_cap = max(pad, ((chunk + pad - 1) // pad) * pad)
     return bounds, chunk_cap
 

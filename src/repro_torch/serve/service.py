@@ -15,18 +15,20 @@ one-shot entry points use:
      │      deadline    = remaining per-request budget
      │      rung_gate   = CircuitBreaker.allow() + EWMA cost estimate
      │      on_rung     = breaker feedback + EWMA update)
-     │        └─ count_from_ranked / peel_* (core pipeline + kernels)
+     │        └─ count rungs / peel_* (core pipeline + kernels)
      └─ stale fallback                       (ResultCache.stale_get)
 
 A port of the reference package's service. Graphs are registered once:
 ranking and the host CSR run at ``register()`` time and every query
 hits the resident :class:`~repro_torch.core.graph.RankedGraph`, keyed
-by the graph's content-hash *version*; each counting query uploads the
-CSR to the service's device and counts there. Every response carries
-the engine-level :class:`~repro_torch.core.resilience.ExecutionReport`
-(which rungs ran) and a :class:`ServiceReport` (what the service did
-around them: queue wait, cache tier, breaker snapshots, deadline
-slack). Every result the service returns or caches is host numpy.
+by the graph's content-hash *version*; each count miss uploads the CSR
+to the service's device and prepares it there once (one wedge-count
+pass), and every rung it tries counts on that prepared graph. Every
+response carries the engine-level
+:class:`~repro_torch.core.resilience.ExecutionReport` (which rungs ran)
+and a :class:`ServiceReport` (what the service did around them: queue
+wait, cache tier, breaker snapshots, deadline slack). Every result the
+service returns or caches is host numpy.
 
 Degradation order under deadline pressure: ``fused_cuda -> fused ->
 torch`` for counting, ``exact -> range`` and ``device -> host`` for
@@ -54,7 +56,6 @@ from ..core import sparsify as _sparsify
 from ..core.device import resolve_device
 from ..core.graph import BipartiteGraph, RankedGraph, preprocess
 from ..core.ranking import make_order
-from ..core.wedges import auto_chunk_budget, shrink_budget
 from ..testing import faults as _faults
 from .admission import AdmissionController
 from .breaker import CircuitBreaker
@@ -500,28 +501,16 @@ class ButterflyService:
     def _count_rungs(self, rec: _Registration, q: Query):
         engine = q.resolved_engine()
         ladder = _count.COUNT_LADDERS.get(engine, (engine,))
-
-        def make(eng):
-            def run(shrinks):
-                mc = None
-                if shrinks:
-                    base = auto_chunk_budget(self.device)
-                    mc = shrink_budget(base, shrinks)
-                out = _count.count_from_ranked(
-                    rec.rg,
-                    aggregation=q.aggregation,
-                    mode=q.mode,
-                    count_dtype=_count.default_count_dtype(),
-                    engine=eng,
-                    max_chunk=mc,
-                    device=self.device,
-                )
-                return _count._to_host(out)
-
-            return _res.Rung(eng, run)
-
+        # one upload and one wedge-count pass per miss, inside the first
+        # rung attempt that counts: every later retry and descent counts
+        # on it, and a failure there is that attempt's outcome
+        rungs = _count._count_rungs(
+            lambda: _count._prepare_ranked(rec.rg, "low", self.device),
+            ladder, aggregation=q.aggregation, mode=q.mode,
+            dtype=_count.default_count_dtype(), max_chunk=None,
+            batch_rows=8,
+        )
         exact_validate = _count.count_validator(rec.graph, q.mode)
-        rungs = [make(e) for e in ladder]
 
         if q.accuracy != "approx":
             interpret = lambda out: _count.interpret_counts(  # noqa: E731

@@ -25,7 +25,6 @@ from repro_torch.core import (  # noqa: E402
 from repro_torch.core.graph import BipartiteGraph, preprocess  # noqa: E402
 from repro_torch.core.pipeline import (  # noqa: E402
     fused_host_inputs,
-    fused_tile_inputs,
     plan_count,
 )
 from repro_torch.core.ranking import make_order  # noqa: E402
@@ -163,7 +162,8 @@ def test_fused_count_tiles_kernel_matches_plain(card, direction, mode,
     wv = host_wedge_counts(rg, direction)
     plan = plan_count(rg, mode=mode, direction=direction, budget=budget,
                       engine="fused_cuda", wv_slots=wv)
-    tb, w_off = fused_tile_inputs(plan, rg.offsets, wv, card)
+    tb, w_off = fused_host_inputs(plan, rg.offsets, wv)
+    w_off = torch.as_tensor(w_off, device=card)
     args = (tb, dg.offsets, dg.neighbors, dg.edge_src, dg.undirected_id,
             w_off)
     kw = dict(n_pad=dg.n_pad, m=dg.m, direction=direction, mode=mode)

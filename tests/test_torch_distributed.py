@@ -16,6 +16,7 @@ wide margins between the injected delays and the deadlines.
 import hashlib
 import json
 import os
+import sys
 import time
 
 import pytest
@@ -52,6 +53,7 @@ from repro_torch.core.distributed import (  # noqa: E402
 from repro_torch.core.graph import preprocess  # noqa: E402
 from repro_torch.core.ranking import make_order  # noqa: E402
 from repro_torch.core.resilience import DeadlineExceeded  # noqa: E402
+from repro_torch.core.wedges import host_wedge_counts  # noqa: E402
 from repro_torch.launch import mesh as launch_mesh  # noqa: E402
 from repro_torch.testing import faults  # noqa: E402
 
@@ -450,12 +452,14 @@ def test_partition_plans_equal_the_reference(key, n_dev, direction):
     g, rg_ref = _graphs(key)
     rg = preprocess(g, make_order(g, "degree", device="cpu"))
     rg_r = ref_preprocess(rg_ref, ref_make_order(rg_ref, "degree"))
-    w, cap = plan_partition(rg, n_dev, direction)
+    wv = host_wedge_counts(rg, direction)
+    w, cap = plan_partition(rg, n_dev, direction, wv_slots=wv)
     w_r, cap_r = ref_dist.plan_partition(rg_r, n_dev, direction)
     assert np.array_equal(w, np.asarray(w_r)) and cap == cap_r
     for max_chunk in (16, 64, 1 << 20):
         t, c = plan_fused_partition(rg, n_dev, direction,
-                                    max_chunk=max_chunk, device="cpu")
+                                    max_chunk=max_chunk, device="cpu",
+                                    wv_slots=wv)
         t_r, c_r = ref_dist.plan_fused_partition(rg_r, n_dev, direction,
                                                  max_chunk=max_chunk)
         assert t.shape == t_r.shape and np.array_equal(t, np.asarray(t_r))
@@ -514,11 +518,34 @@ def test_distributed_count_int64_and_overflow_refusal():
     assert int(got) == (310 * 309 // 2) ** 2
 
 
+@pytest.mark.parametrize("engine", ["fused", "slice"])
+def test_distributed_count_plans_from_its_prepared_graph(engine, monkeypatch,
+                                                         count_refs):
+    """Mesh counting plans and takes its wedge prefix from the one pass
+    of its prepared graph: the numpy ``host_wedge_counts`` never runs."""
+    def boom(*_a, **_k):
+        raise AssertionError("host_wedge_counts called by mesh counting")
+
+    for name, mod in list(sys.modules.items()):
+        if name.startswith("repro_torch") and hasattr(mod,
+                                                      "host_wedge_counts"):
+            monkeypatch.setattr(mod, "host_wedge_counts", boom)
+    g, _ = _graphs("small")
+    want = count_refs["small", False]
+    mesh = launch_mesh.make_test_mesh((2,), ("data",), device="cpu")
+    tot, vert, edge = distributed_count(g, mesh, mode="all", engine=engine,
+                                        max_chunk=64)[0]
+    assert int(tot) == int(want.total)
+    assert np.array_equal(edge.numpy(), np.asarray(want.per_edge))
+
+
 def test_distributed_count_fn_contract():
     g, _ = _graphs("small")
     rg = preprocess(g, make_order(g, "degree", device="cpu"))
     mesh = launch_mesh.make_test_mesh((2,), ("data",), device="cpu")
-    tiles, cap = plan_fused_partition(rg, 2, max_chunk=64, device="cpu")
+    tiles, cap = plan_fused_partition(
+        rg, 2, max_chunk=64, device="cpu",
+        wv_slots=host_wedge_counts(rg, "low"))
     fn = distributed_count_fn(mesh, ("data",), w_cap=cap, mode="all",
                               dtype=torch.int64, engine="fused")
     tot, vert, edge = fn(rg, tiles)

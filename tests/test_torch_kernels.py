@@ -29,7 +29,6 @@ from repro.kernels.bucket_update import (  # noqa: E402
 from repro_torch.core.graph import RankedGraph  # noqa: E402
 from repro_torch.core.pipeline import (  # noqa: E402
     fused_host_inputs,
-    fused_tile_inputs,
     plan_count,
 )
 from repro_torch.core.wedges import device_graph, host_wedge_counts  # noqa: E402
@@ -155,7 +154,8 @@ def test_fused_count_tiles_matches_pallas(direction):
     plan = plan_count(rg, mode="all", direction=direction, budget=64,
                       wv_slots=wv)
     assert plan.n_tiles >= 2 and plan.chunk_cap <= 512
-    tb, w_off = fused_tile_inputs(plan, rg.offsets, wv, CPU)
+    tb, w_off = fused_host_inputs(plan, rg.offsets, wv)
+    w_off = torch.as_tensor(w_off, device=CPU)
     dg = device_graph(rg, CPU)
     rdg = ref_device_graph(ref_rg)
     for mode in ("global", "vertex", "edge", "all"):
@@ -186,7 +186,8 @@ def test_fused_count_tiles_rejects_tile_over_cap():
     rg = RankedGraph.from_arrays(**vars(ref_rg))
     wv = host_wedge_counts(rg, "low")
     plan = plan_count(rg, mode="all", budget=64, wv_slots=wv)
-    tb, w_off = fused_tile_inputs(plan, rg.offsets, wv, CPU)
+    tb, w_off = fused_host_inputs(plan, rg.offsets, wv)
+    w_off = torch.as_tensor(w_off, device=CPU)
     dg = device_graph(rg, CPU)
     widest = int((tb[:, 1] - tb[:, 0]).max())
     with pytest.raises(ValueError, match="tile_cap"):

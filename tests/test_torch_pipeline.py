@@ -61,7 +61,9 @@ def test_wedge_counts_and_wedges_match_reference(direction, order):
 def test_plan_wedge_chunks_matches_reference(budget, direction):
     ref_rg, rg = _ranked()
     rb, rc = ref_wedges.plan_wedge_chunks(ref_rg, direction, budget)
-    pb, pc = wedges.plan_wedge_chunks(rg, direction, budget)
+    pb, pc = wedges.plan_wedge_chunks(
+        rg, direction, budget,
+        wv_slots=wedges.host_wedge_counts(rg, direction))
     assert np.array_equal(pb, rb) and pc == rc
 
 
@@ -80,6 +82,7 @@ def test_plan_dict_matches_reference(engine, aggregation, mode, direction,
     plan = pipeline.plan_count(
         rg, mode=mode, direction=direction, aggregation=aggregation,
         budget=budget, engine=ENGINE_MAP[engine], dtype=torch.int32,
+        wv_slots=wedges.host_wedge_counts(rg, direction),
     )
     want = ref_plan.to_dict()
     want["engine"] = ENGINE_MAP[engine]
@@ -103,7 +106,8 @@ def test_golden_plan_snapshot():
     g = powerlaw_bipartite(2_000, 1_500, 12_000, seed=1)
     rg = preprocess(g, make_order(g, "degree"))
     plan = pipeline.plan_count(rg, mode="all", aggregation="auto",
-                               budget=4096, engine="fused")
+                               budget=4096, engine="fused",
+                               wv_slots=wedges.host_wedge_counts(rg, "low"))
     with open(os.path.join(HERE, "data", "golden_plan_pl_small.json")) as f:
         golden = json.load(f)
     assert plan.to_dict() == golden

@@ -440,14 +440,14 @@ def test_card_out_of_memory_trips_the_breaker(monkeypatch):
     rung's breaker."""
     from repro_torch.core import count as count_mod
 
-    orig = count_mod.count_from_ranked
+    orig = count_mod._count_prepared
 
-    def oom_on_fused_cuda(rg, **kw):
+    def oom_on_fused_cuda(pg, **kw):
         if kw["engine"] == "fused_cuda":
             raise torch.cuda.OutOfMemoryError("CUDA out of memory.")
-        return orig(rg, **kw)
+        return orig(pg, **kw)
 
-    monkeypatch.setattr(count_mod, "count_from_ranked", oom_on_fused_cuda)
+    monkeypatch.setattr(count_mod, "_count_prepared", oom_on_fused_cuda)
     clk = FakeClock()
     service = ButterflyService(
         workers=1, device="cpu", clock=clk, breaker_threshold=2,
@@ -464,6 +464,109 @@ def test_card_out_of_memory_trips_the_breaker(monkeypatch):
         assert snap["state"] == "open" and snap["trips"] == 1
         r = service.query(Query(graph="g"))
         assert r.service.rungs_tried == ["fused_cuda[skipped]", "fused[ok]"]
+    finally:
+        service.close()
+
+
+@pytest.mark.parametrize("fault,tried", [
+    ("oom", ["fused_cuda[resource-exhausted]", "fused[ok]"]),
+    ("capacity_overflow", ["fused_cuda[capacity-overflow]", "fused[ok]"]),
+])
+def test_count_miss_prepares_once_across_retries_and_descents(
+        fault, tried, monkeypatch):
+    """A count miss uploads its resident graph and makes one wedge-count
+    pass before its ladder; the shrink retries and the rung it descends
+    to count on that prepared graph, and a hit prepares nothing."""
+    from repro_torch.core import count as count_mod
+    from repro_torch.core import wedges as wedges_mod
+
+    calls = {"slot_wedge_counts": 0, "device_graph": 0}
+
+    def counted(mod, name):
+        fn = getattr(mod, name)
+
+        def run(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+
+        monkeypatch.setattr(mod, name, run)
+
+    counted(wedges_mod, "slot_wedge_counts")
+    counted(count_mod, "device_graph")
+    once = {"slot_wedge_counts": 1, "device_graph": 1}
+    clk = FakeClock()
+    service = ButterflyService(
+        workers=1, device="cpu", clock=clk,
+        policy=res.ResiliencePolicy(clock=clk, backoff_base_s=0.0))
+    service.register("g", G1)
+    want = ref_core.count_butterflies(REF_G["g1"], mode="all")
+    try:
+        with faults.inject(fault, site="count.fused_cuda") as f:
+            r = service.query(Query(graph="g", mode="all"))
+        assert f.fired >= 1
+        assert r.service.rungs_tried == tried
+        if fault == "oom":
+            assert r.execution.attempts[0].retries == 2
+        assert calls == once
+        for field in COUNT_FIELDS:
+            assert np.array_equal(getattr(r.result, field),
+                                  np.asarray(getattr(want, field))), field
+        assert service.query(Query(graph="g", mode="all")).service.cache \
+            == "hit"
+        assert calls == once
+    finally:
+        service.close()
+
+
+def test_exhaustion_while_preparing_is_a_rung_outcome(monkeypatch):
+    """A RESOURCE_EXHAUSTED in a count miss's upload is the outcome of
+    the attempt that prepares, as one in the count itself is: each exact
+    rung retries and exhausts, an approx query gets the sample rung's
+    estimate and an allow_stale query the stale answer. An approx query
+    whose deadline has run out uploads nothing."""
+    from repro_torch.core import approx as approx_mod
+    from repro_torch.core import count as count_mod
+
+    uploads = []
+
+    def oom(rg, device):
+        uploads.append(device)
+        raise res.ResourceExhausted("RESOURCE_EXHAUSTED: upload")
+
+    exhausted = ["fused_cuda[resource-exhausted]",
+                 "fused[resource-exhausted]", "torch[resource-exhausted]"]
+    clk = TickClock()
+    service = ButterflyService(
+        workers=1, device="cpu", clock=clk, refine_approx=False,
+        breaker_threshold=100,
+        policy=res.ResiliencePolicy(clock=clk, backoff_base_s=0.0))
+    version = service.register("g", G1)
+    service.register("h", G2)
+    try:
+        good = service.query(Query(graph="g", mode="edge"))
+        service.cache.invalidate_version(version)
+        monkeypatch.setattr(count_mod, "device_graph", oom)
+        r = service.query(Query(graph="g", accuracy="approx", eps=0.1,
+                                allow_stale=False))
+        assert r.service.rungs_tried == exhausted + ["sample[ok]"]
+        assert r.service.approximate and isinstance(r.result, ApproxCount)
+        want = approx_mod.sample_count(approx_mod.SampleState.build(G1),
+                                       eps=0.1, seed=0)
+        for f in APPROX_FIELDS:
+            assert getattr(r.result, f) == getattr(want, f), f
+        # every attempt, retries included, tried to upload
+        tries = sum(a.retries + 1 for a in r.execution.attempts[:3])
+        assert tries > 3 and len(uploads) == tries
+        r = service.query(Query(graph="g", mode="edge"))
+        assert r.service.cache == "stale"
+        assert r.service.rungs_tried == exhausted
+        assert np.array_equal(r.result.per_edge, good.result.per_edge)
+        n = len(uploads)
+        r = service.query(Query(graph="h", accuracy="approx", eps=0.1,
+                                deadline_s=1e-6, allow_stale=False))
+        assert r.service.final_rung == "sample"
+        assert all("deadline-skipped" in t for t in r.service.rungs_tried[:-1])
+        assert len(uploads) == n
     finally:
         service.close()
 

@@ -1,16 +1,17 @@
 """The one wedge-count pass of a count: the per-slot wedge counts that
-plan and run a count come from the count's device graph
-(``count._slot_wedges``) and equal the numpy ``host_wedge_counts``
-element for element, padding slots included; ``count_butterflies``
-makes that pass once (``report.phases["count.wedge_counts"].n == 1``)
-and never calls ``host_wedge_counts``, on every engine, mode, forced
-descent, shrink retry and batch aggregation, with the counts and the
-report's plan summary of the host-planned path. The pass of a count
-runs on the graph that the count's CSR build left on its device
-(``wedges.preprocess_device``, counter ``csr_reused`` 1), equal tensor
-for tensor to an upload of the host ``RankedGraph``, which the same
-build gives array for array on the CPU and on the card; only
-``count_from_ranked`` called alone uploads (``csr_reused`` 0)."""
+plan and run a count come from the prepared graph's device pass
+(``wedges.prepare``) and equal the numpy ``host_wedge_counts`` element
+for element, padding slots included, and its per-vertex prefix equals
+the ``np.add.at`` sums; ``count_butterflies`` makes that pass once
+(``report.phases["count.wedge_counts"].n == 1``) and never calls
+``host_wedge_counts``, on every engine, mode, forced descent, shrink
+retry and batch aggregation, with the counts and the report's plan
+summary of the host-planned path. The pass of a count runs on the graph
+that the count's CSR build left on its device
+(``wedges.preprocess_device``; a count calls no ``device_graph``), equal
+tensor for tensor to an upload of the host ``RankedGraph``, which the
+same build gives array for array on the CPU and on the card; only
+``count_from_ranked`` called alone uploads, once."""
 import sys
 
 import pytest
@@ -71,15 +72,23 @@ def _ranked(g, order, pad_vertices=8):
 
 
 def _check_pass(rg, direction, device):
-    sw = count_mod._slot_wedges(rg, direction, device)
+    pg = wedges.prepare(rg, device_graph(rg, device), direction)
     want = host_wedge_counts(rg, direction)
-    assert sw.direction == direction
-    assert sw.host.dtype == np.int64 and sw.cnt.dtype == torch.int64
-    assert sw.cnt.device.type == torch.device(device).type
-    assert np.array_equal(sw.host, want)
-    assert np.array_equal(sw.cnt.cpu().numpy(), want)
-    assert not sw.host[2 * rg.m:].any()  # padding slots hold 0
-    return sw
+    assert pg.rg is rg and pg.direction == direction
+    assert pg.host.dtype == np.int64 and pg.cnt.dtype == torch.int64
+    assert pg.cnt.device.type == torch.device(device).type
+    assert np.array_equal(pg.host, want)
+    assert np.array_equal(pg.cnt.cpu().numpy(), want)
+    assert not pg.host[2 * rg.m:].any()  # padding slots hold 0
+    # the per-vertex prefix equals the per-vertex sums by iterating
+    # endpoint, padding vertices included
+    wv = np.zeros(rg.n_pad, dtype=np.int64)
+    np.add.at(wv, rg.edge_src[:2 * rg.m].astype(np.int64),
+              want[:2 * rg.m])
+    voff = wedges.wedge_prefix(rg.offsets, pg.host)[1]
+    assert voff.dtype == np.int64 and voff.shape == (rg.n_pad + 1,)
+    assert np.array_equal(voff, np.concatenate([[0], np.cumsum(wv)]))
+    return pg
 
 
 @pytest.mark.parametrize("direction", ["low", "high"])
@@ -160,6 +169,7 @@ def test_count_makes_one_pass_and_no_host_pass(case, monkeypatch):
         want_plan = pipeline.plan_count(
             rg, mode=mode, direction="low", aggregation=aggregation,
             budget=MAX_CHUNK, dtype=torch.int64, engine=engine,
+            wv_slots=host_wedge_counts(rg, "low"),
         ).summary()
     _no_host_pass(monkeypatch)
     kw = dict(mode=mode, engine=engine, aggregation=aggregation,
@@ -254,7 +264,7 @@ def test_count_takes_its_graph_from_the_csr_build(device, monkeypatch):
     want = count_butterflies(g, device="cpu", **kw)
     _no_upload(monkeypatch)
     r = count_butterflies(g, device=device, **kw)
-    assert r.report.counters["csr_reused"] == 1
+    assert r.report.counters == {}
     assert r.report.phases["count.csr"].n == 1
     for f in ("total", "per_u", "per_v", "per_edge"):
         assert np.array_equal(getattr(r, f), getattr(want, f)), f
@@ -263,13 +273,36 @@ def test_count_takes_its_graph_from_the_csr_build(device, monkeypatch):
 
 
 @pytest.mark.parametrize("device", DEVICES)
-def test_count_from_ranked_alone_uploads(device):
+def test_count_from_ranked_alone_uploads(device, monkeypatch):
     device = _on(device)
     g = GRAPHS["rand0"]()
     rg = _ranked(g, "degree")
+    uploads = []
+
+    def upload(*a, **k):
+        uploads.append(a[0])
+        return device_graph(*a, **k)
+
+    monkeypatch.setattr(count_mod, "device_graph", upload)
     with spans.root("count") as call:
         total = count_mod.count_from_ranked(
             rg, mode="global", engine="fused_cuda", count_dtype=torch.int64,
             device=device)
-    assert call.counters == {"csr_reused": 0}
+    assert len(uploads) == 1 and uploads[0] is rg
+    assert call.phases["count.wedge_counts"][1] == 1
+    assert call.counters == {}
     assert int(total) == oracle.global_count(g)
+
+
+@pytest.mark.parametrize("knobs,match", [
+    (dict(engine="gpu"), "engine"),
+    (dict(mode="pairs"), "mode"),
+    (dict(aggregation="radix"), "aggregation"),
+    (dict(aggregation="batch", engine="fused"), "batch"),
+])
+def test_count_from_ranked_refuses_bad_knobs_before_uploading(
+        knobs, match, monkeypatch):
+    _no_upload(monkeypatch)
+    rg = _ranked(GRAPHS["rand0"](), "degree")
+    with pytest.raises(ValueError, match=match):
+        count_mod.count_from_ranked(rg, device="cpu", **knobs)
