@@ -41,16 +41,19 @@ Phases, each of which fails the run loudly:
      ``peel_wings(engine="host")`` on ``PEEL_WINGS_HOST`` =
      ``powerlaw_bipartite(5_000, 4_000, 40_000, seed=7)``. Each call
      computes its own counts through ``fused_cuda``, must finish on the
-     rung it asked for and launch its kernel; it prints its wall, host
-     syncs and peak memory. All tip numbers must agree bit for bit, all
-     wing numbers likewise, and both must match the pinned JAX reference
-     ``tests/data/torch_peel_reference.json``;
-  8. hold ``bucket_min`` and ``bucket_update`` against their plain
-     versions on inputs the peeling path gave them (copies kept during
-     phase 7), time both and the ``torch.amin`` yardstick, check that
-     each puts exactly one device operation on the stream per call (no
-     copy, memset or fill; 20 calls traced), and profile one more tip
-     call to set the device's busy time beside its wall and host syncs;
+     rung it asked for and launch its kernel (a device wing call:
+     ``wing_subtract`` once a tile, ``wing_kernel_tiles == tiles``,
+     ``bucket_min`` for its minima and no ``bucket_update``); it prints
+     its wall, host syncs and peak memory. All tip numbers must agree
+     bit for bit, all wing numbers likewise, and both must match the
+     pinned JAX reference ``tests/data/torch_peel_reference.json``;
+  8. hold ``bucket_min``, ``bucket_update`` and ``wing_subtract``
+     against their plain versions on inputs the peeling path gave them
+     (copies kept during phase 7), time them and the ``torch.amin``
+     yardstick, check that each puts exactly one device operation on
+     the stream per call (no copy, memset or fill; 20 calls traced),
+     and profile one more tip call to set the device's busy time
+     beside its wall and host syncs;
   9. the approximate tier and the query service, on the card at full
      size: ``approx_count`` on the smoke graph with ``method="edges"``
      and ``"colorful"`` (fixed ``p`` and ``reps``; one
@@ -153,6 +156,9 @@ KERNEL_SOURCES = {
                    "src/repro/kernels/bucket_min.py:46"),
     "bucket_update": ("src/repro_torch/kernels/csrc/bucket_update.cu",
                       "src/repro/kernels/bucket_update.py:140"),
+    "wing_subtract": ("src/repro_torch/kernels/csrc/wing_subtract.cu",
+                      "none: the reference recovers wing triples with XLA "
+                      "ops"),
 }
 MAIN_PATH = (
     ("fused_cuda", "sort"),
@@ -173,9 +179,9 @@ PEEL_PATH = (
      dict(engine="device", decrease_key="scatter", peel_mode="exact"),
      "bucket_min"),
     ("wings", "PEEL_WINGS", dict(engine="device", decrease_key="bucket"),
-     "bucket_update"),
+     "wing_subtract"),
     ("wings", "PEEL_WINGS", dict(engine="device", decrease_key="scatter"),
-     "bucket_min"),
+     "wing_subtract"),
     ("wings", "PEEL_WINGS_HOST", dict(engine="host"), "bucket_min"),
     ("stored", "PEEL_TIPS", dict(engine="device", decrease_key="bucket"),
      "bucket_update"),
@@ -186,9 +192,9 @@ PEEL_PATH = (
     ("wings", "PEEL_WINGS",
      dict(engine="device", subtract="materialize",
           capacity_schedule="adaptive"),
-     "bucket_update"),
+     "wing_subtract"),
 )
-TAPPED = ("bucket_min", "bucket_update")
+TAPPED = ("bucket_min", "bucket_update", "wing_subtract")
 # (example, its entry in the pin, its arguments: the defaults, the
 # kernels it must launch)
 EXAMPLES = (
@@ -205,6 +211,7 @@ KERNEL_SYMBOLS = {
     "butterfly_combine": ("::butterfly_combine_kernel",),
     "bucket_min": ("::bucket_min_kernel",),
     "bucket_update": ("::bucket_update_kernel",),
+    "wing_subtract": ("::wing_subtract_kernel",),
 }
 
 
@@ -511,11 +518,13 @@ def profile_call(g, dev, wall_s: float) -> None:
 
 
 class KernelTap:
-    """Wraps ``ops.bucket_min`` and ``ops.bucket_update`` while the
-    peeling path runs: records the batch size of every call and keeps
-    copies of a few calls' inputs (the largest batch so far and every
-    ``every``-th call) for phase 8. The wrapped functions still launch
-    and count as before."""
+    """Wraps ``ops.bucket_min``, ``ops.bucket_update`` and
+    ``ops.wing_subtract`` while the peeling path runs: records the batch
+    size (``bucket_update``) or the tile's lanes (``wing_subtract``) of
+    every call and keeps copies of a few calls' inputs (the largest so
+    far and every ``every``-th call; the wing graph is kept, not copied)
+    for phase 8. The wrapped functions still launch and count as
+    before."""
 
     def __init__(self, ops, every: int = 1000):
         self.ops = ops
@@ -543,9 +552,13 @@ class KernelTap:
             setattr(self.ops, name, orig)
 
     def _record(self, name, args):
-        k = int(args[2].numel()) if name == "bucket_update" else 0
+        k = (int(args[2].numel()) if name == "bucket_update"
+             else int(args[2]) - int(args[1]) if name == "wing_subtract"
+             else 0)
         if k > self.largest[name] or self.calls[name] % self.every == 0:
-            self.samples[name].append(tuple(a.clone() for a in args))
+            self.samples[name].append(tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args))
         self.largest[name] = max(self.largest[name], k)
         self.sizes[name].append(k)
         self.calls[name] += 1
@@ -645,6 +658,14 @@ def peel_phase(dev, launches):
                      f"{rep.summary()}")
             if used[kernel] == 0:
                 fail(f"peel {label} ran without launching {kernel}")
+            if kernel == "wing_subtract" and (
+                    used["bucket_update"] or not used["bucket_min"]
+                    or rep.counters.get("wing_kernel_tiles")
+                    != rep.counters["tiles"]):
+                fail(f"peel {label}: {used['bucket_update']} bucket_update "
+                     f"and {used['bucket_min']} bucket_min launches, "
+                     f"counters {rep.counters}; want none, some, and "
+                     f"wing_kernel_tiles == tiles")
             if used["fused_count_tiles"] == 0:
                 fail(f"peel {label} counted without fused_count_tiles")
             adaptive = knobs.get("capacity_schedule") == "adaptive"
@@ -691,9 +712,21 @@ def peel_phase(dev, launches):
     return tap, graphs["PEEL_TIPS"]
 
 
+def _tap_size(name, args) -> int:
+    """What ``KernelTap`` records of a call: a ``bucket_update`` batch,
+    a ``wing_subtract`` tile's lanes, 0 for ``bucket_min``."""
+    if name == "bucket_update":
+        return args[2].numel()
+    if name == "wing_subtract":
+        return args[2] - args[1]
+    return 0
+
+
 def peel_kernel_rows(tap):
-    """Phase 8: the two peeling kernels against their plain versions on
-    inputs copied from the peeling path, timed beside their yardstick."""
+    """Phase 8: the three peeling kernels against their plain versions
+    on inputs copied from the peeling path, timed beside their
+    yardstick (``wing_subtract``, which decrements in place, gets a copy
+    of its counts for each checked call)."""
     from repro_torch.kernels import ops, ref as plain
 
     rows = {}
@@ -703,9 +736,15 @@ def peel_kernel_rows(tap):
             fail(f"the peeling path gave {name} no inputs")
         fn = getattr(ops, name)
         plain_fn = getattr(plain, name + "_ref")
+
+        def fresh(args):
+            if name != "wing_subtract":
+                return args
+            return (args[0].clone(),) + tuple(args[1:])
+
         err = 0.0
         for args in samples:
-            got, want = fn(*args), plain_fn(*args)
+            got, want = fn(*fresh(args)), plain_fn(*fresh(args))
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
             torch.cuda.synchronize()
@@ -714,13 +753,25 @@ def peel_kernel_rows(tap):
             fail(f"{name} differs from its plain version (max |err| {err})")
         sizes = sorted(tap.sizes[name])
         median = sizes[len(sizes) // 2]
-        args = min(samples, key=lambda a: abs(
-            (a[2].numel() if name == "bucket_update" else 0) - median))
+        args = min(samples,
+                   key=lambda a: abs(_tap_size(name, a) - median))
         counts, alive = args[0], args[1]
         n = counts.numel()
         nbytes = (counts.element_size() + 1) * n + 4
+        ops_ = 0
         library_ms = None
-        if name == "bucket_update":
+        if name == "wing_subtract":
+            # the tile's lanes, two int32 operations each (form and test
+            # a candidate, as perfbench/wing_roofline.py counts them);
+            # roff and ids read, the two masks read, the counts read and
+            # written once
+            lanes, k = _tap_size(name, args), args[4].numel()
+            ops_ = 2 * lanes
+            nbytes = 2 * counts.element_size() * n + 2 * n + 8 * (2 * k + 1)
+            shape = (f"m={n} {counts.dtype}, a tile of {lanes} lanes over "
+                     f"{k} peeled edges (median of {len(sizes)} calls; "
+                     f"largest {sizes[-1]})")
+        elif name == "bucket_update":
             k = args[2].numel()
             nbytes += (8 + counts.element_size()) * k
             nbytes += counts.element_size() * n + 4 * 32
@@ -731,7 +782,7 @@ def peel_kernel_rows(tap):
             shape = f"n={n} {counts.dtype} ({len(sizes)} calls)"
             library_ms = time_ms(lambda: torch.amin(torch.where(
                 alive, torch.clamp(counts, max=i32), i32)), iters=20)
-        b_ms, b_by = bound(nbytes, 0)
+        b_ms, b_by = bound(nbytes, ops_)
         rows[name] = dict(
             max_abs_err=err,
             ms=time_ms(lambda: fn(*args), iters=20),
@@ -749,14 +800,15 @@ def peel_kernel_rows(tap):
 
 
 def one_operation(name, fn, args, calls: int = 20, tries: int = 3) -> None:
-    """Phase 8: ``bucket_min`` and ``bucket_update`` on path inputs must
-    each put exactly one device operation on the stream per call, their
-    own kernel: no copy, memset or fill beside it. One trace holds
-    ``calls`` calls, since a trace of one call can lose its only device
-    record (``scripts/torch_profiler_probe.py`` counts how often). A
-    device operation of any other kind, or more launches than calls,
-    fails at once; a trace with fewer launches and nothing else (records
-    dropped) is taken again, up to ``tries`` traces in all."""
+    """Phase 8: ``bucket_min``, ``bucket_update`` and ``wing_subtract``
+    on path inputs must each put exactly one device operation on the
+    stream per call, their own kernel: no copy, memset or fill beside
+    it. One trace holds ``calls`` calls, since a trace of one call can
+    lose its only device record (``scripts/torch_profiler_probe.py``
+    counts how often). A device operation of any other kind, or more
+    launches than calls, fails at once; a trace with fewer launches and
+    nothing else (records dropped) is taken again, up to ``tries``
+    traces in all."""
     sym = KERNEL_SYMBOLS[name][0]
     for attempt in range(1, tries + 1):
         rows = device_rows(lambda: fn(*args), calls)

@@ -43,6 +43,10 @@ Knobs of the device engine:
     next round's masked min (and, in range mode, the bit-length
     occupancy) from the same pass. ``"scatter"``: an in-place scatter
     per tile and the ``bucket_min`` kernel at the top of each round.
+    The wing engine subtracts every tile in place through
+    ``ops.wing_subtract`` (one ``wing_subtract`` kernel launch a tile on
+    the card) under both; with ``"bucket"`` its round then takes the
+    min (and occupancy) from ``pipeline.round_state``.
   - ``capacity_schedule="fixed"|"adaptive"``: the planned frontier
     capacities (level 1 of PEEL-V, the materialized buffers) stay as
     planned, or shrink geometrically as the graph empties: the loop
@@ -57,8 +61,10 @@ Knobs of the device engine:
     re-settle iterations replay the exact κ trajectory (``sub_rounds``
     equals exact mode's ``rounds``). The numbers are the same.
   - ``aggregation="sort"|"hash"``: the grouping of a tile's wedge pairs
-    (tips) or butterfly edge ids (wings); hash falls back to sort on a
-    table overflow. The numbers are the same.
+    (tips); hash falls back to sort on a table overflow. The wing device
+    engine groups nothing (a wing decrement is a sum of ones), so
+    ``aggregation`` and ``hash_bits`` stay in its plan but change none
+    of its work. The numbers are the same.
   - ``tile_budget``: lanes per fused subtract tile. Tiles are cut as
     the reference cuts them (tips at peeled-vertex boundaries,
     ``wedges.aligned_tile_end``, wings every ``tile_cap`` lanes) but
@@ -90,7 +96,8 @@ the device round loop's ``peel.round.select``, ``peel.round.fetch`` and
 ``peel.plan``, and its device rung ``peel.setup``; ``peel_wings`` adds
 ``peel.count``, ``peel.csr`` and ``peel.wing_totals``, and its device
 rung ``peel.setup`` with the counters ``triple_lanes`` (flat triple ids
-streamed) and ``tiles`` (tile enqueues).
+streamed), ``tiles`` (tile enqueues) and, on the card only,
+``wing_kernel_tiles`` (tiles the ``wing_subtract`` kernel ran).
 
 Double-count avoidance (paper §4.3.1/§4.3.2): peel-set members are
 processed against a virtual rank order (their id); an element of the
@@ -124,6 +131,7 @@ from .pipeline import (
     init_loop_state as _init_state,
     plan_peel as _plan_peel,
     prefix_offsets as _prefix,
+    round_state as _round_state,
     stream_tiles as _stream_tiles,
     tile_apply as _tile_apply,
     tile_bounds as _tile_bounds,
@@ -311,32 +319,6 @@ def _subtract_tile(u1, u2, valid, b, alive, *, aggregation: str,
         d = groups.d.to(dtype)
         dec = torch.where(groups.valid, d * (d - 1) // 2, 0)
         tgt = torch.where(groups.valid, groups.x2.to(torch.int64), n_side)
-        return _apply_decrements(b, alive, tgt, dec, decrease_key,
-                                 want_hist)
-
-    out, _ok = _tile_apply(w, aggregation, consume, "torch", hash_bits)
-    return out
-
-
-def _subtract_edge_groups(tgt3, valid3, b, alive, *, aggregation: str,
-                          m: int, hash_bits: Optional[int] = None,
-                          decrease_key: str = "scatter",
-                          want_hist: bool = False):
-    """Group one tile of butterfly edge ids and subtract each group's
-    size: every located butterfly takes 1 from each of its three
-    still-present edges, one subtract per distinct edge. Returns
-    ``(b, min, hist)``."""
-    key = torch.where(valid3, tgt3, m)
-    if aggregation == "sort":
-        s, d, last = _group_ends(key, m)
-        return _apply_decrements(b, alive, torch.where(last, s, m),
-                                 d.to(b.dtype), decrease_key, want_hist)
-    w = Wedges(x1=key, x2=key, y=key, center_slot=key, second_slot=key,
-               valid=valid3)
-
-    def consume(_wv, groups):
-        dec = torch.where(groups.valid, groups.d.to(b.dtype), 0)
-        tgt = torch.where(groups.valid, groups.x1.to(torch.int64), m)
         return _apply_decrements(b, alive, tgt, dec, decrease_key,
                                  want_hist)
 
@@ -1080,8 +1062,36 @@ def _wing_work_totals(g: BipartiteGraph, off: np.ndarray, nbr: np.ndarray):
     return eu, ev, l1, l2
 
 
-def _peel_wings_device_run(g, counts, aggregation, max_frontier, hash_bits,
-                           csr, *, subtract="fused", decrease_key="bucket",
+def _wing_graph(g: BipartiteGraph, csr, ds, device) -> "_kops.WingGraph":
+    """The wing subtract's static arrays (``kernels.ref.WingGraph``) on
+    ``device``, from the global-id CSR ``csr = (off, nbr, uid)`` and its
+    degree-sorted rows ``ds`` (``wedges.degree_sorted_csr``): the three
+    globally sorted search keys are CSR membership (row, neighbor), the
+    degree split (row, neighbor degree) and the global exclusive prefix
+    of neighbor degrees (in-row prefix = G[p] - G[row start])."""
+    off, nbr, uid = csr
+    nbr_ds, uid_ds, degs_ds = ds[:3]
+    n = g.n
+    deg = np.diff(off)
+    src = np.repeat(np.arange(n), deg)
+    stride = int(deg.max(initial=0)) + 1
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.int64),
+                               device=device)
+
+    return _kops.WingGraph(
+        eu=dev(g.edges[:, 0]), ev=dev(g.edges[:, 1] + g.n_u), deg=dev(deg),
+        off=dev(off), nbr=dev(nbr), uid=dev(uid), nbr_ds=dev(nbr_ds),
+        uid_ds=dev(uid_ds),
+        degkey=dev(src * stride + degs_ds),
+        gpre=dev(np.concatenate([[0], np.cumsum(degs_ds)])),
+        comp=dev(src * n + nbr), stride=stride, n=n,
+    )
+
+
+def _peel_wings_device_run(g, counts, max_frontier, csr, *,
+                           subtract="fused", decrease_key="bucket",
                            capacity_schedule="fixed", tile_budget=None,
                            peel_mode="exact", budget_shrinks=0, note=None,
                            w_totals=None, audit=None,
@@ -1094,16 +1104,20 @@ def _peel_wings_device_run(g, counts, aggregation, max_frontier, hash_bits,
     largest frontier)`` are appended to ``audit``.
 
     A round's flat triple space is the prefix of the static per-edge
-    totals ``l2`` over the peel set. A flat id inverts in O(log) per
-    lane: (1) the prefix locates the peeled edge a = (u1, v1) and the
-    offset inside its space; (2) in v1's row of the degree-sorted CSR
-    the candidates u2 with ``deg(u2) < deg(u1)`` form a prefix whose
-    ragged inner sizes are read from the neighbor-degree prefix (one
-    binary search), and every later candidate scans exactly ``deg(u1)``
-    centers (one division). Each binary search is one
-    ``torch.searchsorted`` over a globally sorted key (the row id times
-    a stride plus the in-row value), so no ragged search loop runs.
-    ``subtract="fused"`` streams that space in tiles of ``tile_cap``
+    totals ``l2`` over the peel set. Each tile of it is one
+    ``ops.wing_subtract`` call, which inverts every flat id in O(log)
+    (the peeled edge a = (u1, v1) from the prefix; in v1's row of the
+    degree-sorted CSR, the candidates u2 with ``deg(u2) < deg(u1)``
+    from the neighbor-degree prefix and every later one by a division
+    by ``deg(u1)``), tests the butterfly and takes 1 from the count of
+    each of its three other present edges, in place: a wing decrement
+    is a sum of ones, so nothing is grouped. On the card that is one
+    launch of the ``wing_subtract`` kernel a tile (counter
+    ``wing_kernel_tiles``). After the round's tiles, under
+    ``decrease_key="bucket"`` the round's min (and in range mode its
+    occupancy) comes from :func:`pipeline.round_state` over the updated
+    counts; under ``"scatter"`` the loop runs ``bucket_min`` itself.
+    ``subtract="fused"`` streams the space in tiles of ``tile_cap``
     lanes; ``"materialize"`` takes the whole of it as one tile. Its
     capacities bound what the reference's materializing buffers hold:
     the level-1 candidates (``l1`` over the peel set) and the level-2
@@ -1112,7 +1126,7 @@ def _peel_wings_device_run(g, counts, aggregation, max_frontier, hash_bits,
     triple space exceeds that capacity."""
     note = [] if note is None else note
     off, nbr, uid = csr
-    m, n = g.m, g.n
+    m = g.m
     if m == 0 or int(counts.max(initial=0)) >= _I32_MAX:
         note.append("device engine unavailable: no edges or counts "
                     "beyond int32")
@@ -1120,7 +1134,7 @@ def _peel_wings_device_run(g, counts, aggregation, max_frontier, hash_bits,
     if 2 * m >= _I32_MAX:
         note.append("device engine unavailable: edge slots beyond int32")
         return None
-    eu, ev, l1, l2 = (
+    _eu, _ev, l1, l2 = (
         _wing_work_totals(g, off, nbr) if w_totals is None else w_totals
     )
     lvl1, lvl2 = int(l1.sum()), int(l2.sum())
@@ -1131,7 +1145,8 @@ def _peel_wings_device_run(g, counts, aggregation, max_frontier, hash_bits,
     materialize = subtract == "materialize"
     adaptive = capacity_schedule == "adaptive"
     with _spans.span("peel.setup"):
-        nbr_ds, uid_ds, degs_ds, cumdeg = degree_sorted_csr(off, nbr, uid)
+        ds = degree_sorted_csr(off, nbr, uid)
+        degs_ds, cumdeg = ds[2:]
         if (not materialize and cumdeg.size
                 and int((cumdeg + degs_ds).max(initial=0)) >= _I32_MAX):
             note.append("device engine unavailable: degree-sorted prefixes "
@@ -1142,43 +1157,24 @@ def _peel_wings_device_run(g, counts, aggregation, max_frontier, hash_bits,
                 "cap2": _pow2_pad(min(lvl2, budget))}
         tile_cap = _pow2_pad(min(tb, max(lvl2, 1)))
         want_hist = peel_mode == "range" and decrease_key == "bucket"
-        deg = np.diff(off)
-        src = np.repeat(np.arange(n), deg)
-        stride = int(deg.max(initial=0)) + 1
-
-        def dev(a):
-            return torch.as_tensor(np.ascontiguousarray(a, np.int64),
-                                   device=device)
-
-        off_d, nbr_d, uid_d, deg_d = dev(off), dev(nbr), dev(uid), dev(deg)
-        eu_d, ev_d = dev(eu), dev(ev)
-        nbr_ds_d, uid_ds_d = dev(nbr_ds), dev(uid_ds)
-        # globally sorted search keys: CSR membership (row, neighbor), the
-        # degree split (row, neighbor degree) and the global exclusive
-        # prefix of neighbor degrees (in-row prefix = G[p] - G[row start])
-        comp_d = dev(src * n + nbr)
-        degkey_d = dev(src * stride + degs_ds)
-        gpre_d = dev(np.concatenate([[0], np.cumsum(degs_ds)]))
-        slot_max = 2 * m - 1
+        wg = _wing_graph(g, csr, ds, device)
+        on_card = wg.nbr.device.type == "cuda"
 
         # per-edge level-1 candidates and triple-space sizes
-        work = torch.stack([dev(l1), dev(l2)])
+        work = torch.as_tensor(np.stack([l1, l2]).astype(np.int64),
+                               device=device)
         b0 = torch.tensor(counts, device=device)
         state = _init_state(b0, m, decrease_key=decrease_key,
                             peel_mode=peel_mode, lvl1=lvl1, lvl2=lvl2)
 
     def expand(st, peel, alive_prev, n_peel, tot):
         total1, total = tot
-        alive = st.alive
         ids = _compact(peel, n_peel)
-
-        def present(x, a):
-            return alive_prev[x] & (~peel[x] | (x > a))
-
         if materialize:
             if total1 > caps["cap1"] or (
                     total > caps["cap2"]
-                    and _fetch(st, [level2_total(ids, total1, present)])[0]
+                    and _fetch(st, [level2_total(ids, total1, peel,
+                                                 alive_prev)])[0]
                     > caps["cap2"]):
                 return st.b, True, None, None
             bounds = [(0, total)] if total else []
@@ -1187,75 +1183,26 @@ def _peel_wings_device_run(g, counts, aggregation, max_frontier, hash_bits,
         _spans.add("triple_lanes", total)
         _spans.add("tiles", len(bounds))
         roff = _prefix(work[1][ids])
+        for ts, te in bounds:
+            _kops.wing_subtract(st.b, ts, te, roff, ids, alive_prev, peel,
+                                wg)
+        if on_card:
+            _spans.add("wing_kernel_tiles", len(bounds))
+        if decrease_key != "bucket":
+            return st.b, False, None, None
+        return (st.b, False) + _round_state(st.b, st.alive, want_hist)
 
-        def tile_fn(bt, ts, te):
-            wid = torch.arange(ts, te, device=bt.device)
-            seg, tp = ragged_slots_at(roff, torch.zeros_like(roff[:-1]),
-                                      wid)
-            a2 = ids[seg]
-            u1, v1 = eu_d[a2], ev_d[a2]
-            d1 = deg_d[u1]
-            rs = off_d[v1]
-            # split N(v1) (degree-sorted) at deg(u2) >= deg(u1)
-            q = torch.searchsorted(degkey_d, v1 * stride + d1)
-            g_rs = gpre_d[rs]
-            head = gpre_d[q] - g_rs
-            in_head = tp < head
-            # head: ragged inner sizes from the neighbor-degree prefix
-            p_head = torch.minimum(
-                torch.searchsorted(gpre_d, g_rs + tp + 1), q) - 1
-            # tail: deg(u1)-sized blocks, pure arithmetic
-            r_tail = tp - head
-            d1s = torch.clamp(d1, min=1)
-            j_tail = r_tail // d1s
-            p1 = torch.clamp(torch.where(in_head, p_head, q + j_tail),
-                             0, slot_max)
-            i = torch.where(in_head, tp - (gpre_d[p1] - g_rs),
-                            r_tail - j_tail * d1s)
-            u2 = nbr_ds_d[p1]
-            b_2 = uid_ds_d[p1]
-            kp = (u2 != u1) & present(b_2, a2)
-            si = d1 <= deg_d[u2]
-            small = torch.where(si, u1, u2)
-            oth = torch.where(si, u2, u1)
-            i = torch.minimum(torch.clamp(i, min=0),
-                              torch.clamp(deg_d[small] - 1, min=0))
-            pos2 = torch.clamp(off_d[small] + i, 0, slot_max)
-            v2 = nbr_d[pos2]
-            e_small = uid_d[pos2]
-            # membership: (other, v2) must be an edge
-            key = oth * n + v2
-            p = torch.clamp(torch.searchsorted(comp_d, key), max=slot_max)
-            hit = comp_d[p] == key
-            e_other = uid_d[p]
-            # c = (u1, v2), d = (u2, v2): map small/other back
-            c_edge = torch.where(si, e_small, e_other)
-            d_edge = torch.where(si, e_other, e_small)
-            ok = (kp & hit & (v2 != v1) & present(c_edge, a2)
-                  & present(d_edge, a2))
-            return _subtract_edge_groups(
-                torch.cat([b_2, c_edge, d_edge]), torch.cat([ok, ok, ok]),
-                bt, alive, aggregation=aggregation, m=m,
-                hash_bits=hash_bits, decrease_key=decrease_key,
-                want_hist=want_hist,
-            )
-
-        b, mn, hist = _stream_tiles(
-            st.b, alive, bounds, tile_fn,
-            decrease_key=decrease_key, want_hist=want_hist,
-        )
-        return b, False, mn, hist
-
-    def level2_total(ids, total1, present):
+    def level2_total(ids, total1, peel, alive_prev):
         """The reference's materialized level-2 size: per level-1
         candidate (a, u2 in N(v1)) that is not a itself and is present,
         min(deg(u1), deg(u2)) centers to scan."""
-        v1 = ev_d[ids]
-        seg, pos1, _, _ = expand_ragged(off_d[v1], deg_d[v1], total1)
+        v1 = wg.ev[ids]
+        seg, pos1, _, _ = expand_ragged(wg.off[v1], wg.deg[v1], total1)
         a1 = ids[seg]
-        u1, u2 = eu_d[a1], nbr_d[pos1]
-        keep = (u2 != u1) & present(uid_d[pos1], a1)
-        return torch.where(keep, torch.minimum(deg_d[u1], deg_d[u2]),
+        u1, u2 = wg.eu[a1], wg.nbr[pos1]
+        x = wg.uid[pos1]
+        keep = ((u2 != u1) & alive_prev[x] & (~peel[x] | (x > a1)))
+        return torch.where(keep, torch.minimum(wg.deg[u1], wg.deg[u2]),
                            0).sum()
 
     def shrink_caps():
@@ -1428,11 +1375,12 @@ def peel_wings(
     min-degree-side intersections, matching the paper's
     Σ min(deg(u), deg(u')) work bound. ``engine="host"`` keeps the
     numpy round loop with the ``bucket_min`` kernel as its extract-min;
-    ``engine="device"`` recovers each round's triples on the device from
-    flat ids (see ``_peel_wings_device_run``) and subtracts through
-    ``bucket_update`` or a scatter. ``aggregation``/``hash_bits`` select
-    the device engine's grouped edge subtract (the host engine's raw
-    triple scatter gives the same sums). ``max_frontier`` bounds only
+    ``engine="device"`` recovers each round's triples from flat ids and
+    subtracts them in place, one ``ops.wing_subtract`` call a tile (the
+    ``wing_subtract`` kernel on the card; see
+    ``_peel_wings_device_run``). No engine groups the decrements, so
+    ``aggregation`` and ``hash_bits`` are recorded in the plan and
+    change no wing engine's work. ``max_frontier`` bounds only
     ``subtract="materialize"``: the fused device engine keeps no
     frontier buffer. Other knobs as in :func:`peel_tips`; every
     combination gives the same numbers.
@@ -1466,7 +1414,7 @@ def peel_wings(
                                  torch.from_numpy(counts)).numpy()
         notes: list = []
         res = _peel_wings_device_run(
-            g, c, aggregation, mf, hash_bits, (off, nbr, uid),
+            g, c, mf, (off, nbr, uid),
             subtract=subtract, decrease_key=decrease_key,
             capacity_schedule=capacity_schedule, tile_budget=tile_budget,
             peel_mode=peel_mode, budget_shrinks=shrinks, note=notes,

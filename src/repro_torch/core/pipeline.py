@@ -95,6 +95,7 @@ __all__ = [
     "prefix_offsets",
     "empty_hist",
     "masked_state",
+    "round_state",
     "apply_decrements",
     "init_loop_state",
     "tile_bounds",
@@ -850,6 +851,19 @@ def masked_state(b: torch.Tensor, alive: torch.Tensor, want_hist: bool):
     if want_hist:
         return _kops.bucket_state(b, alive)
     return _kops.bucket_min(b, alive), empty_hist(False, b.device)
+
+
+def round_state(b: torch.Tensor, alive: torch.Tensor, want_hist: bool):
+    """The masked min (plus occupancy when consumed) of counts that a
+    round decremented in place, in the ``bucket_update`` contract, from
+    the hand-written kernels: ``bucket_min``, or ``bucket_update`` over
+    an empty batch, whose one pass gives both (its copy of the counts is
+    dropped)."""
+    if not want_hist:
+        return _kops.bucket_min(b, alive), empty_hist(False, b.device)
+    none = torch.empty(0, dtype=torch.int64, device=b.device)
+    _b, mn, hist = _kops.bucket_update(b, alive, none, none.to(b.dtype))
+    return mn, hist
 
 
 def apply_decrements(b, alive, tgt, dec, decrease_key: str,

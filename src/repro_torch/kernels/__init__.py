@@ -11,7 +11,10 @@
     ``bucket_min.bucket_min_pallas``),
   - ``bucket_update``: batched decrease-key with the next round's min
     and bit-length occupancy (replaces
-    ``bucket_update.bucket_update_pallas``).
+    ``bucket_update.bucket_update_pallas``),
+  - ``wing_subtract``: a wing-peeling tile's butterfly recovery and its
+    atomic decrements in one launch (replaces no TPU kernel: the
+    reference recovers the triples with XLA ops).
 
 Callers go through ``ops``, which launches the kernel for CUDA tensors
 and the plain PyTorch version in ``ref`` for CPU tensors.
@@ -24,6 +27,7 @@ from .ops import (
     fused_count_tiles,
     reset_launches,
     wedge_histogram,
+    wing_subtract,
 )
 
 __all__ = [
@@ -34,4 +38,5 @@ __all__ = [
     "fused_count_tiles",
     "reset_launches",
     "wedge_histogram",
+    "wing_subtract",
 ]

@@ -47,12 +47,13 @@ __all__ = [
     "fused_count_tiles",
     "bucket_min",
     "bucket_update",
+    "wing_subtract",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("wedge_histogram.cu", "butterfly_combine.cu", "fused_count_tiles.cu",
-           "bucket_min.cu", "bucket_update.cu")
+           "bucket_min.cu", "bucket_update.cu", "wing_subtract.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -119,6 +120,8 @@ _SIGNATURES = {
     ),
     "bf_bucket_min": (_P, _I, _P, _L, _P, _I, _P, _P),
     "bf_bucket_update": (_P, _I, _P, _L, _P, _P, _L, _P, _P, _P),
+    "bf_wing_subtract": (_P, _L, _P, _P, _P, *(_P,) * 11, _L, _L, _L, _L, _L,
+                         _P, _I, _P),
 }
 
 
@@ -608,3 +611,37 @@ def bucket_update(counts: torch.Tensor, alive: torch.Tensor,
             int(counts.dtype == torch.int64), _ptr(alive), counts.numel(),
             _ptr(idx), _ptr(dec), idx.numel(), _ptr(new), _ptr(out))
     return new, out[0], out[1:]
+
+
+_WING_ARRAYS = ("eu", "ev", "deg", "off", "nbr", "uid", "nbr_ds", "uid_ds",
+                "degkey", "gpre", "comp")
+
+
+def wing_subtract(counts: torch.Tensor, ts: int, te: int, roff: torch.Tensor,
+                  ids: torch.Tensor, alive_prev: torch.Tensor,
+                  peel: torch.Tensor, g) -> None:
+    """Decrement int32 or int64 ``counts`` in place by the butterflies
+    that lanes ``[ts, te)`` of a wing round locate (``g`` a
+    ``kernels.ref.WingGraph`` of int64 arrays on the counts' device;
+    ``roff`` (k + 1,) and ``ids`` (k,) int64, k >= 1; the masks bool or
+    0/1, one entry an edge). One launch; nothing is read back."""
+    lib = build()
+    dev = counts.device
+    counts = _counts(counts, "wing_subtract")
+    m = counts.numel()
+    alive_prev = _mask(alive_prev)
+    peel = _mask(peel)
+    _require(alive_prev, "alive_prev", torch.bool, dev, (m,))
+    _require(peel, "peel", torch.bool, dev, (m,))
+    k = ids.numel()
+    _require(ids, "ids", torch.int64, dev, (k,))
+    _require(roff, "roff", torch.int64, dev, (k + 1,))
+    n, slots = int(g.n), g.nbr.numel()
+    shapes = dict(eu=(m,), ev=(m,), deg=(n,), off=(n + 1,), gpre=(slots + 1,))
+    arrays = [getattr(g, name) for name in _WING_ARRAYS]
+    for name, t in zip(_WING_ARRAYS, arrays):
+        _require(t, name, torch.int64, dev, shapes.get(name, (slots,)))
+    _launch(lib, "wing_subtract", dev, _ptr(roff), k, _ptr(ids),
+            _ptr(alive_prev), _ptr(peel), *(_ptr(t) for t in arrays),
+            int(g.stride), n, slots, int(ts), int(te), _ptr(counts),
+            int(counts.dtype == torch.int64))

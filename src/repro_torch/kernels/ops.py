@@ -30,6 +30,8 @@ __all__ = [
     "bucket_min",
     "bucket_state",
     "bucket_update",
+    "WingGraph",
+    "wing_subtract",
     # peeling-kernel contract constants and pure helpers, re-exported so
     # core/ reaches them through this dispatch module
     "NUM_BUCKETS",
@@ -46,9 +48,11 @@ lowest_nonempty_bucket = _ref.lowest_nonempty_bucket
 build = _cuda.build
 build_info = _cuda.build_info
 histogram_plan = _cuda.histogram_plan
+WingGraph = _ref.WingGraph
 
 LAUNCHES = {"wedge_histogram": 0, "butterfly_combine": 0,
-            "fused_count_tiles": 0, "bucket_min": 0, "bucket_update": 0}
+            "fused_count_tiles": 0, "bucket_min": 0, "bucket_update": 0,
+            "wing_subtract": 0}
 
 
 def reset_launches() -> None:
@@ -123,6 +127,26 @@ def bucket_update(counts: torch.Tensor, alive: torch.Tensor,
     out = _cuda.bucket_update(counts, alive, idx, dec)
     LAUNCHES["bucket_update"] += 1
     return out
+
+
+def wing_subtract(counts: torch.Tensor, ts: int, te: int, roff: torch.Tensor,
+                  ids: torch.Tensor, alive_prev: torch.Tensor,
+                  peel: torch.Tensor, graph: WingGraph) -> torch.Tensor:
+    """One tile ``[ts, te)`` of a wing-peeling round's flat triple space:
+    each located butterfly takes 1 from the count of each of its three
+    other still-present edges, in place (see ``ref.wing_subtract_ref``).
+    ``counts`` int32 or int64, ``roff`` the int64 prefix of the triple
+    space sizes over the peeled edges ``ids``, ``graph`` the static
+    arrays. Returns ``counts``. An empty tile launches nothing."""
+    _faults.maybe_oom("ops.wing_subtract")
+    if te <= ts or ids.numel() == 0:
+        return counts
+    if not _on_cuda(counts, "wing_subtract"):
+        return _ref.wing_subtract_ref(counts, ts, te, roff, ids, alive_prev,
+                                      peel, graph)
+    _cuda.wing_subtract(counts, ts, te, roff, ids, alive_prev, peel, graph)
+    LAUNCHES["wing_subtract"] += 1
+    return counts
 
 
 def fused_count_tiles(

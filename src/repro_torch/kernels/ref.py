@@ -8,6 +8,8 @@ the card, bit for bit.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 __all__ = [
@@ -23,6 +25,8 @@ __all__ = [
     "bucket_min_ref",
     "bucket_state_ref",
     "bucket_update_ref",
+    "WingGraph",
+    "wing_subtract_ref",
 ]
 
 # Geometric count ranges of the peeling occupancy histogram: bucket k
@@ -212,3 +216,115 @@ def bucket_update_ref(counts: torch.Tensor, alive: torch.Tensor,
     new.index_add_(0, idx[keep], -dec.reshape(-1)[keep].to(counts.dtype))
     mn, hist = _min_and_hist(_clamped_i32(new), alive)
     return new, mn, hist
+
+
+class WingGraph(NamedTuple):
+    """The static arrays of a wing decomposition's triple recovery, all
+    int64 on one device (built once a call by ``core/peel.py``'s
+    ``_wing_graph``). ``n`` vertices in global ids (V after U), ``m``
+    edges, ``2m`` CSR slots:
+
+      - ``eu``, ``ev`` (m,): each edge's U and V endpoint;
+      - ``deg`` (n,), ``off`` (n + 1,): degrees and CSR offsets;
+      - ``nbr``, ``uid`` (2m,): each row's neighbours, ascending, and
+        the undirected edge id of each slot;
+      - ``nbr_ds``, ``uid_ds`` (2m,): the same rows sorted by neighbour
+        degree;
+      - ``degkey`` (2m,): ``row * stride + neighbour degree`` of the
+        degree-sorted rows, ascending;
+      - ``gpre`` (2m + 1,): the exclusive prefix of the degree-sorted
+        neighbour degrees;
+      - ``comp`` (2m,): ``row * n + neighbour``, ascending;
+      - ``stride``: the largest degree plus one."""
+
+    eu: torch.Tensor
+    ev: torch.Tensor
+    deg: torch.Tensor
+    off: torch.Tensor
+    nbr: torch.Tensor
+    uid: torch.Tensor
+    nbr_ds: torch.Tensor
+    uid_ds: torch.Tensor
+    degkey: torch.Tensor
+    gpre: torch.Tensor
+    comp: torch.Tensor
+    stride: int
+    n: int
+
+
+def wing_subtract_ref(counts: torch.Tensor, ts: int, te: int,
+                      roff: torch.Tensor, ids: torch.Tensor,
+                      alive_prev: torch.Tensor, peel: torch.Tensor,
+                      g: WingGraph) -> torch.Tensor:
+    """One tile ``[ts, te)`` of a wing-peeling round's flat triple space:
+    every butterfly it locates takes 1 from the count of each of its
+    three other still-present edges, in place. Returns ``counts``.
+
+    ``ids`` (k,) are the round's peeled edges, ascending, and ``roff``
+    (k + 1,) the int64 prefix of their triple-space sizes ``l2``. A flat
+    id inverts to the peeled edge ``a = (u1, v1)`` (a search of
+    ``roff``), a candidate ``u2`` of v1's degree-sorted row and a centre
+    index ``i``: the row's candidates with ``deg(u2) < deg(u1)`` come
+    first, each with ``deg(u2)`` centres (a search of ``gpre``), every
+    later one with ``deg(u1)`` (a division). ``v2`` is the ``i``-th
+    neighbour of the smaller-degree side of ``u1``, ``u2``, and the
+    butterfly exists when the other side has the edge to ``v2`` (a
+    search of ``comp``). Edge ``x`` is present for ``a`` when
+    ``alive_prev[x] & (~peel[x] | x > a)``; a butterfly counts when
+    ``u2 != u1``, ``v2 != v1`` and its three other edges ``b = (u2,
+    v1)``, ``c = (u1, v2)``, ``d = (u2, v2)`` are present. Every
+    decrement lands whether its edge is alive or not. Every index is
+    clamped into its array, so a lane past the space reads in range."""
+    if te <= ts or ids.shape[0] == 0:
+        return counts
+    dev = counts.device
+    slot_max = g.nbr.shape[0] - 1
+    stride, n = g.stride, g.n
+    wid = torch.arange(ts, te, device=dev)
+    kc = torch.minimum(wid, torch.clamp(roff[-1] - 1, min=0))
+    seg = torch.clamp(torch.searchsorted(roff, kc, right=True) - 1,
+                      0, ids.shape[0] - 1)
+    tp = kc - roff[seg]
+    a = ids[seg]
+
+    def present(x):
+        return alive_prev[x] & (~peel[x] | (x > a))
+
+    u1, v1 = g.eu[a], g.ev[a]
+    d1 = g.deg[u1]
+    rs = g.off[v1]
+    # split N(v1) (degree-sorted) at deg(u2) >= deg(u1)
+    q = torch.searchsorted(g.degkey, v1 * stride + d1)
+    g_rs = g.gpre[rs]
+    head = g.gpre[q] - g_rs
+    in_head = tp < head
+    # head: ragged inner sizes from the neighbour-degree prefix
+    p_head = torch.minimum(torch.searchsorted(g.gpre, g_rs + tp + 1), q) - 1
+    # tail: deg(u1)-sized blocks, pure arithmetic
+    r_tail = tp - head
+    d1s = torch.clamp(d1, min=1)
+    j_tail = r_tail // d1s
+    p1 = torch.clamp(torch.where(in_head, p_head, q + j_tail), 0, slot_max)
+    i = torch.where(in_head, tp - (g.gpre[p1] - g_rs), r_tail - j_tail * d1s)
+    u2 = g.nbr_ds[p1]
+    b = g.uid_ds[p1]
+    si = d1 <= g.deg[u2]
+    small = torch.where(si, u1, u2)
+    oth = torch.where(si, u2, u1)
+    i = torch.minimum(torch.clamp(i, min=0),
+                      torch.clamp(g.deg[small] - 1, min=0))
+    pos2 = torch.clamp(g.off[small] + i, 0, slot_max)
+    v2 = g.nbr[pos2]
+    e_small = g.uid[pos2]
+    # membership: (other, v2) must be an edge
+    key = oth * n + v2
+    p = torch.clamp(torch.searchsorted(g.comp, key), max=slot_max)
+    e_other = g.uid[p]
+    # c = (u1, v2), d = (u2, v2): map small/other back
+    c = torch.where(si, e_small, e_other)
+    d = torch.where(si, e_other, e_small)
+    ok = ((u2 != u1) & present(b) & (g.comp[p] == key) & (v2 != v1)
+          & present(c) & present(d))
+    tgt = torch.cat([b[ok], c[ok], d[ok]])
+    return counts.index_add_(0, tgt, torch.full_like(tgt, -1,
+                                                     dtype=counts.dtype))

@@ -409,25 +409,102 @@ def test_bucket_update_edge_cases_match_plain(card, dtype, case):
         assert int(got[1]) == 2**31 - 1 and not got[2].any()
 
 
+def _wing_kernels(got, decrease_key, peel_mode):
+    """A device wing call on the card: one ``wing_subtract`` launch a
+    tile, counted by ``wing_kernel_tiles``, and its minima from
+    ``bucket_min`` (under ``bucket`` in range mode: ``bucket_update``
+    over an empty batch, once a round, never with a decrement batch)."""
+    c = got.report.counters
+    assert ops.LAUNCHES["wing_subtract"] == c["wing_kernel_tiles"] == c[
+        "tiles"] > 0
+    if (decrease_key, peel_mode) == ("bucket", "range"):
+        assert 0 < ops.LAUNCHES["bucket_update"] <= got.sub_rounds
+    else:
+        assert ops.LAUNCHES["bucket_min"] > 0
+        assert ops.LAUNCHES["bucket_update"] == 0
+
+
 @pytest.mark.parametrize("decrease_key,kernel", [("bucket", "bucket_update"),
                                                  ("scatter", "bucket_min")])
 @pytest.mark.parametrize("peel_mode", ["exact", "range"])
 def test_peel_device_on_card_launches_and_matches_cpu(card, decrease_key,
                                                       kernel, peel_mode):
     """The device peeling engines on the card, with default (int64)
-    counts, launch their kernel and give the CPU port's numbers."""
+    counts, launch their kernels (tips: ``kernel``; wings:
+    ``wing_subtract`` a tile and a min kernel a round) and give the CPU
+    port's numbers."""
     g = powerlaw_bipartite(600, 500, 4000, seed=7)
     for fn in (peel_tips, peel_wings):
         want = fn(g, engine="device", peel_mode=peel_mode, device="cpu")
         ops.reset_launches()
         got = fn(g, engine="device", decrease_key=decrease_key,
                  peel_mode=peel_mode, device=card)
-        assert ops.LAUNCHES[kernel] > 0, fn.__name__
+        if fn is peel_wings:
+            _wing_kernels(got, decrease_key, peel_mode)
+        else:
+            assert ops.LAUNCHES[kernel] > 0
         assert got.report.final_rung == "device"
         assert got.numbers.dtype == np.int64
         assert np.array_equal(got.numbers, want.numbers), fn.__name__
         assert (got.rounds, got.sub_rounds) == (want.rounds, want.sub_rounds)
         assert np.array_equal(got.round_sizes, want.round_sizes)
+
+
+def _wing_round(device, dtype):
+    """A wing round of a power-law graph on ``device``: the wing
+    subtract's static arrays, the counts in ``dtype``, an alive set with
+    a fifth of the edges gone and a peel set of the alive edges at or
+    below the 15th percentile of their counts (many ties)."""
+    from repro_torch.core.peel import (_csr, _wing_graph,
+                                       _wing_work_totals)
+    from repro_torch.core.pipeline import prefix_offsets
+    from repro_torch.core.wedges import degree_sorted_csr
+
+    g = powerlaw_bipartite(5_000, 4_000, 40_000, seed=7)
+    off, nbr, uid = _csr(g)
+    _eu, _ev, _l1, l2 = _wing_work_totals(g, off, nbr)
+    wg = _wing_graph(g, (off, nbr, uid), degree_sorted_csr(off, nbr, uid),
+                     device)
+    counts = np.asarray(count_butterflies(
+        g, mode="edge", count_dtype=torch.int64, device="cpu").per_edge)
+    rng = np.random.default_rng(11)
+    alive = rng.random(g.m) >= 0.2
+    peel = alive & (counts <= np.quantile(counts[alive], 0.15))
+    ids = np.flatnonzero(peel)
+    roff = prefix_offsets(torch.as_tensor(l2[ids]))
+    t = functools.partial(torch.as_tensor, device=device)
+    return (t(counts.astype(dtype)), roff.to(device), t(ids), t(alive),
+            t(peel), wg, l2[ids])
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("tiles", ["whole", "cut_inside_edge", "lanes_1000",
+                                   "lanes_37"])
+def test_wing_subtract_kernel_matches_plain(card, tiles, dtype):
+    """The kernel's counts equal the plain version's bit for bit over a
+    whole round of a power-law graph, tile cut by tile cut; an empty
+    tile launches nothing."""
+    b, roff, ids, alive, peel, wg, l2 = _wing_round(card, dtype)
+    b0, want = b.clone(), b.clone()
+    total = int(roff[-1])
+    if tiles == "whole":
+        bounds = [(0, total)]
+    elif tiles == "cut_inside_edge":
+        j = int(np.argmax(l2))
+        cut = int(roff[j]) + int(l2[j]) // 2
+        bounds = [(0, cut), (cut, total)]
+    else:
+        w = int(tiles.split("_")[1])
+        bounds = [(s, min(s + w, total)) for s in range(0, total, w)]
+    before = ops.LAUNCHES["wing_subtract"]
+    for ts, te in bounds:
+        assert ops.wing_subtract(b, ts, te, roff, ids, alive, peel, wg) is b
+        ref.wing_subtract_ref(want, ts, te, roff, ids, alive, peel, wg)
+    ops.wing_subtract(b, total, total, roff, ids, alive, peel, wg)
+    assert ops.LAUNCHES["wing_subtract"] == before + len(bounds)
+    torch.cuda.synchronize()
+    assert b.dtype == want.dtype and torch.equal(b.cpu(), want.cpu())
+    assert not torch.equal(want, b0)
 
 
 def test_peel_wings_host_on_card_launches_bucket_min(card):
@@ -450,9 +527,9 @@ def test_peel_wings_host_on_card_launches_bucket_min(card):
     ("tips", dict(decrease_key="bucket", capacity_schedule="adaptive"),
      "bucket_update"),
     ("wings", dict(decrease_key="bucket", subtract="materialize",
-                   capacity_schedule="adaptive"), "bucket_update"),
+                   capacity_schedule="adaptive"), "wing_subtract"),
     ("wings", dict(decrease_key="scatter", subtract="materialize"),
-     "bucket_min"),
+     "wing_subtract"),
 ])
 def test_peel_new_paths_on_card_launch_and_match_cpu(card, kind, knobs,
                                                      kernel):
@@ -467,6 +544,8 @@ def test_peel_new_paths_on_card_launch_and_match_cpu(card, kind, knobs,
     ops.reset_launches()
     got = fn(g, device=card, **kw)
     assert ops.LAUNCHES[kernel] > 0
+    if kind == "wings":
+        _wing_kernels(got, knobs["decrease_key"], "exact")
     assert got.report.final_rung == "device" and not got.report.degraded
     assert got.numbers.dtype == np.int64
     assert np.array_equal(got.numbers, want.numbers)
@@ -532,8 +611,8 @@ def test_approx_count_on_card_matches_cpu(card, kw):
 def test_service_on_card_matches_cpu(card):
     """The query service on the card: count, peel and approximate
     queries give the CPU service's answers; a count query launches the
-    fused kernel, a device peel query its bucket kernel, and a cache hit
-    launches nothing."""
+    fused kernel, a device peel query its bucket kernel (a wing query
+    its wing kernel), and a cache hit launches nothing."""
     from repro_torch.serve import ButterflyService, Query
 
     g1 = powerlaw_bipartite(800, 600, 6000, seed=2)
@@ -572,6 +651,8 @@ def test_service_on_card_matches_cpu(card):
                 assert np.array_equal(a, b), f
         if got.service.kind == "count":
             assert used["fused_count_tiles"] == 1
+        elif got.service.kind == "peel_wings":
+            assert used["wing_subtract"] > 0 and not used["bucket_update"]
         else:
             assert used["bucket_update"] > 0
 

@@ -336,6 +336,8 @@ def test_wrappers_refuse_other_devices():
         ops.bucket_min(keys, keys)
     with pytest.raises(ValueError, match="not supported"):
         ops.bucket_update(keys, keys, keys, keys)
+    with pytest.raises(ValueError, match="not supported"):
+        ops.wing_subtract(keys, 0, 4, keys, keys, keys, keys, None)
 
 
 I32_MAX = np.iinfo(np.int32).max
