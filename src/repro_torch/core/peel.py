@@ -96,7 +96,8 @@ the device round loop's ``peel.round.select``, ``peel.round.fetch`` and
 ``peel.plan``, and its device rung ``peel.setup``; ``peel_wings`` adds
 ``peel.count``, ``peel.csr`` and ``peel.wing_totals``, and its device
 rung ``peel.setup`` with the counters ``triple_lanes`` (flat triple ids
-streamed), ``tiles`` (tile enqueues) and, on the card only,
+streamed), ``tiles`` (tile enqueues), ``multi_tile_rounds`` (rounds
+whose triple space took two or more tiles) and, on the card only,
 ``wing_kernel_tiles`` (tiles the ``wing_subtract`` kernel ran).
 
 Double-count avoidance (paper §4.3.1/§4.3.2): peel-set members are
@@ -1097,11 +1098,23 @@ def _peel_wings_device_run(g, counts, max_frontier, csr, *,
                            w_totals=None, audit=None,
                            device=None) -> Optional[PeelResult]:
     """Plan and run the device wing loop. Returns None when the device
-    engine does not apply (no edges, counts or expansion totals beyond
-    int32) or, under ``subtract="materialize"``, a round's frontier
-    exceeded a ``max_frontier``-derived capacity; the ladder then
-    descends to the host loop. The loop's ``(host syncs, segments,
-    largest frontier)`` are appended to ``audit``.
+    engine does not apply (no edges, or one of the int32 limits below)
+    or, under ``subtract="materialize"``, a round's frontier exceeded a
+    ``max_frontier``-derived capacity; the ladder then descends to the
+    host loop. The loop's ``(host syncs, segments, largest frontier)``
+    are appended to ``audit``.
+
+    What stays 32-bit, and so still refuses a graph: the counts (the
+    loop's κ and carried min are int32, as ``bucket_min`` reduces), the
+    edge slots (the per-edge count's CSR holds int32 offsets and edge
+    ids) and, under ``"materialize"`` only, the level-1 and level-2
+    totals (its one tile a round is sized by int32 capacities, which the
+    adaptive schedule shrinks from ``LoopState.rem``, capped below
+    INT32_MAX). The fused path indexes no total: a round's flat ids
+    start at 0, and its ``roff`` prefix, tile bounds and flat ids are
+    int64 in ``ops.wing_subtract``, its kernel and its plain version, as
+    are the degree-sorted prefix ``gpre`` and the search keys. So a
+    decomposition's triple space L may pass 2^31, and so may a round's.
 
     A round's flat triple space is the prefix of the static per-edge
     totals ``l2`` over the peel set. Each tile of it is one
@@ -1118,7 +1131,8 @@ def _peel_wings_device_run(g, counts, max_frontier, csr, *,
     occupancy) comes from :func:`pipeline.round_state` over the updated
     counts; under ``"scatter"`` the loop runs ``bucket_min`` itself.
     ``subtract="fused"`` streams the space in tiles of ``tile_cap``
-    lanes; ``"materialize"`` takes the whole of it as one tile. Its
+    lanes (counter ``multi_tile_rounds``: the rounds that took two or
+    more); ``"materialize"`` takes the whole of it as one tile. Its
     capacities bound what the reference's materializing buffers hold:
     the level-1 candidates (``l1`` over the peel set) and the level-2
     scans of the candidates that survive the presence test, which the
@@ -1128,30 +1142,27 @@ def _peel_wings_device_run(g, counts, max_frontier, csr, *,
     off, nbr, uid = csr
     m = g.m
     if m == 0 or int(counts.max(initial=0)) >= _I32_MAX:
+        # κ, the carried min and bucket_min's reduction are int32
         note.append("device engine unavailable: no edges or counts "
                     "beyond int32")
         return None
     if 2 * m >= _I32_MAX:
+        # the per-edge count's CSR: int32 offsets and edge ids
         note.append("device engine unavailable: edge slots beyond int32")
         return None
     _eu, _ev, l1, l2 = (
         _wing_work_totals(g, off, nbr) if w_totals is None else w_totals
     )
     lvl1, lvl2 = int(l1.sum()), int(l2.sum())
-    if lvl1 >= _I32_MAX or lvl2 >= _I32_MAX:
-        note.append("device engine unavailable: expansion totals beyond "
-                    "int32 indexing")
-        return None
     materialize = subtract == "materialize"
     adaptive = capacity_schedule == "adaptive"
+    if materialize and max(lvl1, lvl2) >= _I32_MAX:
+        # one tile a round, sized by int32 capacities and the int32 rem
+        note.append("device engine unavailable: materialized expansion "
+                    "totals beyond int32 capacities")
+        return None
     with _spans.span("peel.setup"):
         ds = degree_sorted_csr(off, nbr, uid)
-        degs_ds, cumdeg = ds[2:]
-        if (not materialize and cumdeg.size
-                and int((cumdeg + degs_ds).max(initial=0)) >= _I32_MAX):
-            note.append("device engine unavailable: degree-sorted prefixes "
-                        "beyond int32 indexing")
-            return None
         budget, tb = _budgets(max_frontier, tile_budget, budget_shrinks)
         caps = {"cap1": _pow2_pad(min(lvl1, budget)),
                 "cap2": _pow2_pad(min(lvl2, budget))}
@@ -1182,6 +1193,7 @@ def _peel_wings_device_run(g, counts, max_frontier, csr, *,
             bounds = _tile_bounds(total, tile_cap)
         _spans.add("triple_lanes", total)
         _spans.add("tiles", len(bounds))
+        _spans.add("multi_tile_rounds", len(bounds) >= 2)
         roff = _prefix(work[1][ids])
         for ts, te in bounds:
             _kops.wing_subtract(st.b, ts, te, roff, ids, alive_prev, peel,

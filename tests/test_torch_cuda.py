@@ -507,6 +507,22 @@ def test_wing_subtract_kernel_matches_plain(card, tiles, dtype):
     assert not torch.equal(want, b0)
 
 
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_wing_subtract_kernel_shifted_past_int32(card, dtype):
+    """The kernel with ``roff``, ``ts`` and ``te`` moved past 2^31 by one
+    int64 base gives the plain version's counts at their own place."""
+    b, roff, ids, alive, peel, wg, _l2 = _wing_round(card, dtype)
+    want = b.clone()
+    total, shift = int(roff[-1]), 2**31 + 12_345
+    bounds = [(s, min(s + 1000, total)) for s in range(0, total, 1000)]
+    for ts, te in bounds:
+        ops.wing_subtract(b, ts + shift, te + shift, roff + shift, ids,
+                          alive, peel, wg)
+        ref.wing_subtract_ref(want, ts, te, roff, ids, alive, peel, wg)
+    torch.cuda.synchronize()
+    assert torch.equal(b.cpu(), want.cpu())
+
+
 def test_peel_wings_host_on_card_launches_bucket_min(card):
     g = powerlaw_bipartite(300, 250, 2000, seed=7)
     want = peel_wings(g, engine="host", device="cpu")

@@ -173,8 +173,10 @@ def test_wing_phases_and_counters(wing_graph):
     rep = r.report
     assert rep.final_rung == "device"
     assert set(rep.phases) == WING_SPANS
-    assert set(rep.counters) == {"rounds", "triple_lanes", "tiles"}
+    assert set(rep.counters) == {"rounds", "triple_lanes", "tiles",
+                                 "multi_tile_rounds"}
     assert rep.counters["rounds"] == r.rounds > 0
+    assert rep.counters["multi_tile_rounds"] == 0  # 2^20-lane tiles
     ph = rep.phases
     for name in ("peel.count", "peel.csr", "peel.wing_totals",
                  "peel.setup"):
@@ -199,6 +201,9 @@ def test_wing_counters_follow_the_tiles(wing_graph):
                                           *_csr(wing_graph)[:2])
     assert lanes <= int(l2.sum())
     assert lanes / 256 <= small["tiles"] <= lanes / 256 + big["rounds"]
+    # each round the counter counts took two tiles or more
+    assert 0 < 2 * small["multi_tile_rounds"] <= small["tiles"]
+    assert big["multi_tile_rounds"] == 0
 
 
 def test_wing_numbers_alike_with_spans_on_and_off(wing_graph):

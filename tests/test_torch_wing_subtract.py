@@ -137,3 +137,22 @@ def test_device_wings_equal_host_wings(name, aggregation):
     assert np.array_equal(got.numbers, want.numbers)
     assert (got.rounds, got.sub_rounds) == (want.rounds, want.sub_rounds)
     assert np.array_equal(got.round_sizes, want.round_sizes)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("shift", [2**31, 2**31 + 12_345, 3 * 2**32])
+def test_wing_subtract_shifted_past_int32(rnd, shift, dtype):
+    """``roff``, ``ts`` and ``te`` moved past 2^31 by one int64 base (a
+    round's space placed anywhere in a decomposition's): the same counts
+    as at their own place, tile for tile."""
+    bounds = [(s, min(s + 97, rnd.total)) for s in range(0, rnd.total, 97)]
+    want = rnd.run(dtype, bounds)
+    b = torch.as_tensor(rnd.counts.astype(dtype))
+    roff = rnd.roff + shift
+    for ts, te in bounds:
+        ops.wing_subtract(b, ts + shift, te + shift, roff,
+                          torch.as_tensor(rnd.ids),
+                          torch.as_tensor(rnd.alive),
+                          torch.as_tensor(rnd.peel), rnd.wg)
+    assert np.array_equal(b.numpy(), want)
+    assert np.array_equal(want, rnd.want(dtype))
